@@ -18,26 +18,45 @@ entry points a user calls: ``parse_prediction_query`` →
   ``featurize``, ``tree_gemm`` and ``segment_agg`` kernels);
 * the filter→join→aggregate dashboard plan over a star schema of 2^20 fact
   rows and 2^16 dim rows with dyadic values (``gather_join`` and
-  ``segment_agg``), as a global fold and segmented into 6 requests.
+  ``segment_agg``), as a global fold and segmented into 6 requests;
+
+and a third path serves an LM through ``build_model(get_config(...)).init``
+→ ``ServeEngine.submit`` → ``ServeEngine.run``:
+
+* granite-3-8b at its published width and full depth (d_model 4096, 40
+  layers, 32 query and 8 KV heads, d_ff 12800, bf16, random weights drawn
+  on the card from a seed), 16 slots over a 1,024-row cache, 32 requests of
+  512-token prompts and 32–64 new tokens, so slots are recycled mid-flight
+  and prefills come in batches of several sizes (``flash_attention`` once a
+  layer a prefill, ``decode_attention`` once a layer a decode tick).
 
 In order it
 
 1. prints the card's name and power limit, and the kernels' build time;
-2. runs each plan once as a warm-up, recording the arguments every kernel
-   wrapper is given there;
+2. runs each plan once as a warm-up, and serves the LM workload once,
+   recording the arguments every kernel wrapper is given the first time it
+   sees each shape (a copy: the LM's caches change in place afterwards);
 3. holds each kernel against its plain PyTorch version on the card on
    those arguments (``featurize``, ``gather_join`` and ``segment_agg`` on
    dyadic data bitwise; ``tree_gemm`` within 1e-5 and ``segment_agg`` on
-   the model's scores within rtol 1e-5, sums over another order) and times
-   it, its plain version and, where one exists, one PyTorch library call
-   computing the same function, beside its bound on an H100;
+   the model's scores within rtol 1e-5, sums over another order; the
+   attention kernels within 2e-2 in bf16 and 2e-5 in f32) and times it, its
+   plain version and, where one exists, one PyTorch library call computing
+   the same function, beside its bound on an H100;
 4. zeroes every kernel's launch count and drives the main path: the
    prediction query for three bindings of ``:t``, checked against the
    numpy host interpreter ``run_pipeline``; the dashboard plan, global and
    segmented, bitwise against a numpy host oracle and between
    ``RAVEN_KERNELS`` on and off; then reads the counts, each of which must
    be above 0 on the plan that reaches its kernel;
-5. prints the kernel table as one JSON line and, last, the device line
+5. zeroes the counts again and serves the LM workload, printing prefill
+   time per admission, the median decode tick, time to first token and
+   generated tokens per second; reads the counts (40 ``flash_attention``
+   launches an admission, 40 ``decode_attention`` launches a tick); then
+   serves it once more with the two attention wrappers swapped for their
+   plain versions and holds the served tokens equal, step by step, up to
+   the first near-tie between a step's top two logits;
+6. prints the kernel table as one JSON line and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -51,6 +70,8 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
+from importlib import import_module
 from pathlib import Path
 
 import numpy as np
@@ -61,6 +82,7 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet (dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12  # fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # bf16 on the tensor cores
 
 TRAIN_ROWS, INFER_ROWS = 4096, 100_000
 N_ESTIMATORS, MAX_DEPTH = 150, 5
@@ -71,6 +93,9 @@ QUERY = (
     "WHERE asthma = 1 AND score >= :t"
 )
 MEASURES = ("x", "v0", "v1")
+LM_ARCH, LM_SEED = "granite-3-8b", 0
+LM_SLOTS, LM_CACHE, LM_PROMPT, LM_REQUESTS = 16, 1024, 512, 32
+LM_NEW_TOKENS = (32, 64)  # max_new_tokens drawn from this range, inclusive
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
 KERNELS = {
@@ -86,12 +111,17 @@ KERNELS = {
     "segment_agg": ("repro_torch.kernels.relational",
                     "src/repro_torch/kernels/csrc/segment_agg.cu",
                     "src/repro/kernels/relational.py:143"),
+    "flash_attention": ("repro_torch.kernels.attention",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:63"),
+    "decode_attention": ("repro_torch.kernels.attention",
+                         "src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:60"),
 }
+ATTENTION = ("flash_attention", "decode_attention")
 
 
 def wrapper(name: str):
-    from importlib import import_module
-
     return getattr(import_module(KERNELS[name][0]), name)
 
 
@@ -278,26 +308,36 @@ def check_dashboard(tables, seg, device) -> None:
 # ---------------------------------------------------------------------------
 
 
+def site_key(name: str, label: str, args: tuple, kwargs: dict) -> tuple:
+    """A call site: kernel, phase label, operand shapes and options."""
+    return (name, label, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)),
+            tuple(sorted(kwargs.items())))
+
+
 class Recorder:
-    """For the warm-up run only: wraps every kernel wrapper so that each
-    call's arguments (the tensors the main path hands the kernel) are kept.
-    The wrappers still count these launches; the counts are zeroed before
-    the main path is driven."""
+    """For the warm-up run only: wraps every kernel wrapper so that the
+    arguments of the first call at each call site (the tensors the main path
+    hands the kernel) are kept, as copies: the LM's caches change in place
+    after the call. The wrappers still count these launches; the counts are
+    zeroed before the main path is driven."""
 
     def __init__(self):
         self.calls: list[tuple[str, str, tuple, dict]] = []
         self.label = ""
+        self._seen: set = set()
         self._saved = []
 
     def __enter__(self):
-        from importlib import import_module
-
         for name, (mod, _, _) in KERNELS.items():
             module = import_module(mod)
             real = getattr(module, name)
 
             def rec(*a, _real=real, _name=name, **k):
-                self.calls.append((_name, self.label, a, k))
+                key = site_key(_name, self.label, a, k)
+                if key not in self._seen:
+                    self._seen.add(key)
+                    kept = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+                    self.calls.append((_name, self.label, kept, dict(k)))
                 return _real(*a, **k)
 
             self._saved.append((module, name, real))
@@ -311,19 +351,23 @@ class Recorder:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Device time of one call: CUDA events around a burst of ``reps`` calls
+    enqueued back to back, so the host's work for one call overlaps the
+    card's for the last (where the host is the slower, this is its time);
+    the median of three bursts."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -331,11 +375,13 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_moved: int, fp32_ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int, flops_per_s: float = FP32_FLOPS_PER_S
+          ) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    fp32 operations over the fp32 rate, whichever is larger."""
+    operations over the peak rate of their type (fp32 by default),
+    whichever is larger."""
     t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    t_ops = 1e3 * fp32_ops / FP32_FLOPS_PER_S
+    t_ops = 1e3 * ops / flops_per_s
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -347,12 +393,24 @@ def tree_gemm_fp64(x, A, B, C, D, V, base) -> torch.Tensor:
     return (torch.einsum("ntl,tl->n", match, V.to(torch.float64)) + base).to(torch.float32)
 
 
+def check_attention(got, want, name: str) -> float:
+    """Kernel against plain version: atol 2e-2 in bf16, 2e-5 in f32 (the
+    reference's kernel-sweep tolerances)."""
+    check(got.dtype == want.dtype and got.shape == want.shape, (name, got.shape, want.shape))
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
+    check(err <= tol, f"{name} off by {err} (tolerance {tol})")
+    return err
+
+
 def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
     """One recorded call: kernel against plain version, times and bound."""
     from repro_torch.kernels import ref
 
     kern = wrapper(name)
     library = None
+    rate = FP32_FLOPS_PER_S
     if name == "featurize":
         num, cat, offset, scale, values, val_col = args
         lens = np.bincount(val_col.cpu().numpy(), minlength=cat.shape[1])
@@ -404,6 +462,52 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         moved = nbytes(fk, skeys, spay, out, hit)
         ops_ = 0  # integer compares and copies only
         shape = f"N={fk.shape[0]} M={M} P={P}"
+    elif name == "flash_attention":
+        q, k, v = args
+        causal, scale = kwargs["causal"], kwargs["scale"]
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)  # noqa: E731
+        got, want = kern(*args, **kwargs), plain()
+        err = check_attention(got, want, name)
+        B, Sq, H, D = q.shape
+        Skv, KH = k.shape[1], k.shape[2]
+        # (query, key) pairs under the mask: what this call needs
+        pairs = (sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq)) if causal
+                 else Sq * Skv)
+        ops_ = 4 * B * H * pairs * D  # q.k and p.v, a multiply and an add each
+        moved = nbytes(q, k, v, got)
+        rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+        mask = None
+        if causal:
+            ar = torch.arange(Skv, device=q.device)
+            mask = ar[:Sq, None] + (Skv - Sq) >= ar[None, :]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, scale=scale, enable_gqa=True)
+
+        shape = f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} {str(q.dtype)[6:]}"
+    elif name == "decode_attention":
+        q, kc, vc, lengths = args
+        scale = kwargs["scale"]
+        plain = lambda: ref.decode_attention_ref(q, kc, vc, lengths, scale=scale)  # noqa: E731
+        got, want = kern(*args, **kwargs), plain()
+        err = check_attention(got, want, name)
+        B, H, D = q.shape
+        S, KH = kc.shape[1], kc.shape[2]
+        rows = int(lengths.sum())  # the valid cache rows: what this call reads
+        moved = nbytes(q, lengths, got) + 2 * rows * KH * D * kc.element_size()
+        ops_ = 4 * H * rows * D
+        rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+        valid = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None]
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=valid, scale=scale, enable_gqa=True)
+
+        span = f"{int(lengths.min())}..{int(lengths.max())}"
+        shape = f"B={B} S={S} lengths {span} H={H} KH={KH} D={D} {str(q.dtype)[6:]}"
     else:  # segment_agg
         vals, w, sid = args
         S = kwargs["num_segments"]
@@ -425,7 +529,7 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         ops_ = N * (1 + 4 * C)  # w sum; v*w, its sum, min, max per column
         shape = f"N={N} C={C} S={S}"
     torch.cuda.synchronize()
-    b_ms, b_by = bound(moved, ops_)
+    b_ms, b_by = bound(moved, ops_, rate)
     run = lambda: kern(*args, **kwargs)  # noqa: E731
     return {
         "name": name, "shape": shape, "max_abs_err": err,
@@ -436,18 +540,12 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
 
 
 def parity_phase(calls) -> dict[str, dict]:
-    """Every distinct call site of the warm-up; per kernel, the row for its
+    """Every call site the warm-up recorded; per kernel, the row for its
     largest site (max_abs_err is the largest over all its sites)."""
     rows: dict[str, dict] = {}
-    seen = set()
     for name, label, args, kwargs in calls:
-        key = (name, label, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)),
-               tuple(sorted(kwargs.items())))
-        if key in seen:
-            continue
-        seen.add(key)
         row = parity_site(name, args, kwargs, dyadic=label.startswith("dashboard"))
-        print(f"parity {name:<11} [{label}] {row['shape']}: max_abs_err="
+        print(f"parity {name:<16} [{label}] {row['shape']}: max_abs_err="
               f"{row['max_abs_err']!r} ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
               f"bound_ms={row['bound_ms']!r} ({row['bound_by']}) "
               f"library_ms={row['library_ms']!r}", flush=True)
@@ -460,6 +558,250 @@ def parity_phase(calls) -> dict[str, dict]:
             best["max_abs_err"] = max(row["max_abs_err"], best["max_abs_err"])
     check(sorted(rows) == sorted(KERNELS), f"kernels reached: {sorted(rows)}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+
+def build_lm(dev):
+    """granite-3-8b at its published width and depth, bf16, random weights
+    drawn on the card from a seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, param_count
+
+    cfg = get_config(LM_ARCH)
+    check((cfg.family, cfg.dtype, cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+           cfg.hd, cfg.d_ff) == ("dense", "bfloat16", 4096, 40, 32, 8, 128, 12800), cfg)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(LM_SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {param_count(cfg)} parameters ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} padded to {params['embed'].shape[0]}, {cfg.dtype}) drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    return model, params
+
+
+def lm_requests(vocab: int, seed: int = 1) -> list[tuple[list[int], int]]:
+    rng = np.random.default_rng(seed)
+    lo, hi = LM_NEW_TOKENS
+    return [(rng.integers(0, vocab, size=LM_PROMPT).tolist(), int(rng.integers(lo, hi + 1)))
+            for _ in range(LM_REQUESTS)]
+
+
+class TracedModel:
+    """The model as the engine sees it, for one serving run: each prefill
+    admission and decode tick is timed between two synchronisations, and
+    each step's logits are kept by (request id, step). Requests are admitted
+    in submission order, so a prefill's rows are the next request ids; a
+    decode tick's rows are the engine's slots."""
+
+    def __init__(self, model, recorder=None):
+        self.model, self.cfg, self.recorder = model, model.cfg, recorder
+        self.engine = None
+        self.t0 = 0.0
+        self.prefills: list[tuple[int, float]] = []  # (batch, ms)
+        self.ticks_ms: list[float] = []
+        self.first_token_s: dict[int, float] = {}
+        self.logits: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+
+    def _label(self, label: str) -> None:
+        if self.recorder is not None:
+            self.recorder.label = label
+
+    def prefill(self, params, batch, cache_len=None):
+        self._label("lm prefill")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = self.model.prefill(params, batch, cache_len=cache_len)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        B = logits.shape[0]
+        first = sum(b for b, _ in self.prefills)
+        for i in range(B):
+            self.first_token_s[first + i] = now - self.t0
+            self.logits[(first + i, 0)] = (logits, i)
+        self.prefills.append((B, 1e3 * (now - t)))
+        return logits, caches
+
+    def decode(self, params, batch, caches):
+        self._label("lm decode" if len(self.prefills) == 1 else "lm decode, slots recycled")
+        rows = [(r.rid, len(r.output)) if r is not None else None
+                for r in self.engine.slot_req]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = self.model.decode(params, batch, caches)
+        torch.cuda.synchronize()
+        self.ticks_ms.append(1e3 * (time.perf_counter() - t))
+        for i, key in enumerate(rows):
+            if key is not None:
+                self.logits[key] = (logits, i)
+        return logits, caches
+
+    def row(self, rid: int, step: int) -> torch.Tensor:
+        logits, i = self.logits[(rid, step)]
+        return logits[i].float()
+
+
+def serve_lm(model, params, requests, dev, recorder=None):
+    """One serving run of the workload; returns (trace, outputs by request
+    id, wall seconds)."""
+    from repro_torch.serve import ServeEngine
+
+    traced = TracedModel(model, recorder)
+    eng = ServeEngine(traced, params, n_slots=LM_SLOTS, cache_len=LM_CACHE, device=dev)
+    eng.prefill_len = LM_PROMPT
+    traced.engine = eng
+    for prompt, n in requests:
+        eng.submit(prompt, max_new_tokens=n)
+    torch.cuda.synchronize()
+    traced.t0 = t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    outputs = {r.rid: r.output for r in done}
+    V = model.cfg.vocab_size
+    check(sorted(outputs) == list(range(len(requests))), "not every request finished")
+    for rid, (_, n) in enumerate(requests):
+        check(len(outputs[rid]) == n and all(0 <= t < V for t in outputs[rid]),
+              (rid, n, outputs[rid]))
+    return traced, outputs, wall
+
+
+@contextmanager
+def plain_attention():
+    """The two attention wrappers swapped for their plain versions."""
+    from repro_torch.kernels import ref
+
+    module = import_module(KERNELS["flash_attention"][0])
+    saved = module.flash_attention, module.decode_attention
+    module.flash_attention = lambda q, k, v, *, causal, scale: ref.flash_attention_ref(
+        q, k, v, causal=causal, scale=scale)
+    module.decode_attention = lambda q, kc, vc, lengths, *, scale: ref.decode_attention_ref(
+        q, kc, vc, lengths, scale=scale)
+    try:
+        yield
+    finally:
+        module.flash_attention, module.decode_attention = saved
+
+
+def top2_gap(row: torch.Tensor) -> float:
+    top = torch.topk(row, 2).values
+    return float(top[0] - top[1])
+
+
+def compare_served(kern: TracedModel, plain: TracedModel, out_k: dict, out_p: dict):
+    """Served tokens of the kernel run against the plain run, step by step.
+    Up to a request's first differing token the two runs saw the same
+    context, so their logits compare; D is the largest logit difference
+    over all such steps. A request passes if its tokens agree throughout,
+    or if at or before its first differing step either run's top two logits
+    were within 2·D (a near-tie that another rounding may flip). A
+    difference at a step with a clear margin fails. Returns (requests equal
+    in full, requests that differ after a near-tie, steps held equal before
+    each request's first near-tie, D)."""
+    mismatch = {}
+    D = 0.0
+    for rid, a in out_k.items():
+        b = out_p[rid]
+        m = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        mismatch[rid] = m
+        for t in range(len(a) if m is None else m + 1):
+            row_k, row_p = kern.row(rid, t), plain.row(rid, t)
+            check(bool(torch.isfinite(row_k).all()), f"request {rid} step {t}: logits")
+            D = max(D, float((row_k - row_p).abs().max()))
+    full = near = held = 0
+    for rid, m in mismatch.items():
+        tie = next((t for t in range(len(out_k[rid]) if m is None else m + 1)
+                    if min(top2_gap(kern.row(rid, t)), top2_gap(plain.row(rid, t))) <= 2 * D),
+                   None)
+        held += len(out_k[rid]) if tie is None else tie
+        if m is None:
+            full += 1
+            continue
+        check(tie is not None,
+              f"request {rid}: token {m} differs ({out_k[rid][m]} vs {out_p[rid][m]}) "
+              f"with every top-2 gap up to it above 2 x {D!r}")
+        near += 1
+    return full, near, held, D
+
+
+def device_ms_by_kernel(prof) -> dict[str, tuple[int, float]]:
+    """Kernel name -> (launches, device ms) from a profiler trace."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        out[e.key] = (e.count, (us if us is not None else e.self_cuda_time_total) / 1e3)
+    return out
+
+
+def profile_lm(model, params, requests, dev, tick_ms: float) -> None:
+    """Where the time goes, by torch.profiler: four decode ticks over all
+    16 slots (the first 16 requests, admitted together, at lengths
+    513..516), then the admission of a single request. Prints each part's
+    host time, the card's busy time (the sum of its kernels: one stream)
+    and the kernels that take most of it; the idle share of a tick is set
+    against the unprofiled median tick of the main run, since profiling
+    slows the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
+    def engine(n_slots: int, reqs):
+        eng = ServeEngine(model, params, n_slots=n_slots, cache_len=LM_CACHE, device=dev)
+        eng.prefill_len = LM_PROMPT
+        for prompt, _ in reqs:
+            eng.submit(prompt, max_new_tokens=LM_NEW_TOKENS[0])
+        return eng
+
+    full = engine(LM_SLOTS, requests[:LM_SLOTS])
+    full.step()  # the 16 admitted together, and their first tick
+    single = engine(1, requests[LM_SLOTS:LM_SLOTS + 1])
+    parts = {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for part, run, n in (("decode tick", full.step, 4),
+                         ("prefill of 1 request", single._admit, 1)):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / n
+        kernels = device_ms_by_kernel(prof)
+        busy = sum(ms for _, ms in kernels.values()) / n
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        parts[part] = busy
+        print(f"profile {part}: host {wall!r} ms under the profiler, card busy "
+              f"{busy!r} ms; top kernels (launches, ms each {part}): "
+              + "; ".join(f"{name[:60]} ({c / n:g}, {ms / n:.4f})"
+                          for name, (c, ms) in top), flush=True)
+    print(f"profile: a decode tick's card busy time is {parts['decode tick']!r} ms of "
+          f"the main run's median tick {tick_ms!r} ms: idle share "
+          f"{1 - parts['decode tick'] / tick_ms!r}", flush=True)
+
+
+def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
+    tokens = sum(len(o) for o in outputs.values())
+    ttft = sorted(traced.first_token_s.values())
+    full = [ms for b, ms in traced.prefills if b == LM_SLOTS]
+    stats = {
+        "admissions": len(traced.prefills), "ticks": len(traced.ticks_ms),
+        "prefill_ms_by_batch": [[b, ms] for b, ms in traced.prefills],
+        "prefill_ms_full_batch": float(np.median(full)) if full else None,
+        "decode_tick_ms_median": float(np.median(traced.ticks_ms)),
+        "decode_tick_ms_p90": float(np.percentile(traced.ticks_ms, 90)),
+        "ttft_s_median": float(np.median(ttft)), "ttft_s_max": ttft[-1],
+        "generated_tokens": tokens, "wall_s": wall,
+        "generated_tokens_per_s": tokens / wall,
+    }
+    print("lm serving:", json.dumps(stats), flush=True)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +839,9 @@ def main() -> int:
     seg = np.sort(np.random.default_rng(2).integers(0, N_REQUESTS, size=FACT_ROWS)
                   ).astype(np.int32)
 
+    model, params = build_lm(dev)
+    requests = lm_requests(model.cfg.vocab_size)
+
     # warm-up, recording what the main path hands each kernel
     with Recorder() as rec:
         rec.label = "hospital"
@@ -505,6 +850,8 @@ def main() -> int:
         run_dashboard(tables, dev, "on")
         rec.label = "dashboard-segmented"
         run_dashboard(tables, dev, "on", segments=(seg, N_REQUESTS))
+        _, _, wall = serve_lm(model, params, requests, dev, recorder=rec)
+        print(f"lm warm-up served {LM_REQUESTS} requests in {wall:.2f} s", flush=True)
     rows = parity_phase(rec.calls)
     del rec
 
@@ -528,6 +875,33 @@ def main() -> int:
     check(counts["gather_join"] > 0 and counts["segment_agg"] > model_counts["segment_agg"],
           f"a relational kernel was not launched: {counts}")
     print("dashboard: global and segmented bitwise vs host and on vs off", flush=True)
+
+    # the LM serving path, counted
+    for name in KERNELS:
+        _build.LAUNCHES[name] = 0
+    traced, outputs, wall = serve_lm(model, params, requests, dev)
+    lm_counts = dict(_build.LAUNCHES)
+    stats = report_lm(traced, outputs, wall)
+    print("launches of the LM serving run:", lm_counts, flush=True)
+    n_layers = model.cfg.n_layers
+    check(lm_counts["flash_attention"] == n_layers * stats["admissions"]
+          and lm_counts["decode_attention"] == n_layers * stats["ticks"]
+          and stats["admissions"] > 1 and stats["ticks"] > 0,
+          f"attention launches {lm_counts} for {stats['admissions']} admissions and "
+          f"{stats['ticks']} ticks of {n_layers} layers")
+    check(all(lm_counts[n] == 0 for n in KERNELS if n not in ATTENTION), lm_counts)
+    with plain_attention():
+        plain, plain_outputs, plain_wall = serve_lm(model, params, requests, dev)
+    check(dict(_build.LAUNCHES) == lm_counts, "the plain run launched a kernel")
+    full, near, held, D = compare_served(traced, plain, outputs, plain_outputs)
+    print(f"served tokens vs the plain-attention run ({plain_wall:.2f} s): {full} of "
+          f"{LM_REQUESTS} requests equal in full, {near} differ after a near-tie "
+          f"(top-2 logit gap <= 2 x {D!r}, the largest logit difference on the "
+          f"matching steps); {held} of {stats['generated_tokens']} tokens held "
+          f"equal before each request's first near-tie", flush=True)
+    for name in ATTENTION:
+        counts[name] = lm_counts[name]
+    profile_lm(model, params, requests, dev, stats["decode_tick_ms_median"])
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():

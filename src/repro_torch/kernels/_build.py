@@ -43,6 +43,14 @@ SIGNATURES: dict[str, list] = {
     "raven_gather_join": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
     # vals, w, sid, partials, counts, sums, mins, maxs, N, C, S, blocks, stream
     "raven_segment_agg": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # q, k, v, out, dtype, B, Sq, Skv, H, KH, D, scale, causal, stream
+    "raven_flash_attention": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+    ],
+    # q, k_cache, v_cache, lengths, out, dtype, B, S, H, KH, D, scale, stream
+    "raven_decode_attention": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+    ],
 }
 
 _lock = threading.Lock()
@@ -52,7 +60,8 @@ _lib: ctypes.CDLL | None = None
 # launches the kernel, and nowhere else. A caller that wants the launches of
 # one run sets the counts to 0 before it.
 LAUNCHES: dict[str, int] = dict.fromkeys(
-    ("featurize", "tree_gemm", "gather_join", "segment_agg"), 0
+    ("featurize", "tree_gemm", "gather_join", "segment_agg", "flash_attention",
+     "decode_attention"), 0
 )
 
 

@@ -1,8 +1,8 @@
-"""Dispatch for the four main-path kernels.
+"""Dispatch for the hand-written kernels.
 
 Policy: a CUDA tensor goes to the hand-written kernel (``featurize``,
-``tree_gemm``, ``relational``), a CPU tensor to the plain version in
-:mod:`repro_torch.kernels.ref`. There is no fallback between the two: a
+``tree_gemm``, ``relational``, ``attention``), a CPU tensor to the plain
+version in :mod:`repro_torch.kernels.ref`. There is no fallback between the two: a
 CUDA input whose kernel cannot build or launch raises, and an input on any
 other device raises. Callers pass natural shapes; the one padding the port
 keeps (the GEMM program's) is provably inert, see :func:`pad_gemm_program`.
@@ -141,3 +141,34 @@ def segment_agg_op(vals, w, sid, *, num_segments: int):
             num_segments=num_segments,
         )
     return _ref.segment_agg_ref(vals, w, sid, num_segments=num_segments)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """q:(B,Sq,H,D); k,v:(B,Skv,KH,D), H % KH == 0 → (B,Sq,H,D) in q's
+    dtype, float32 sums. The causal mask is offset by Skv − Sq."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if _route(q, "flash_attention"):
+        from repro_torch.kernels.attention import flash_attention
+
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, scale=scale)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention_op(q, k_cache, v_cache, lengths, *, scale: float | None = None):
+    """q:(B,H,D); k_cache,v_cache:(B,S,KH,D); lengths:(B,) valid rows of
+    each cache, at least 1 → (B,H,D) in q's dtype, float32 sums."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if _route(q, "decode_attention"):
+        from repro_torch.kernels.attention import decode_attention
+
+        return decode_attention(
+            q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+            lengths.to(torch.int32).contiguous(), scale=scale,
+        )
+    return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)

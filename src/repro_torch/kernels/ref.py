@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four main-path kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Line for line the reference package's jnp oracles: the CPU path runs them,
 and the CUDA kernels are held against them on the card. Inputs are torch
@@ -91,3 +91,43 @@ def segment_agg_ref(vals, w, sid, *, num_segments):
         0, idx2, torch.where(valid, vf, -inf), reduce="amax"
     )
     return counts, sums, mins, maxs
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
+    """Full-softmax attention oracle. q:(B,Sq,H,D) k,v:(B,Skv,KH,D) with GQA
+    (H % KH == 0). Returns (B,Sq,H,D)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    qg = qf.reshape(B, Sq, KH, G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+    if causal:
+        Skv = k.shape[1]
+        ar = lambda n: torch.arange(n, device=q.device)  # noqa: E731
+        mask = ar(Sq)[:, None] + (Skv - Sq) >= ar(Skv)[None, :]
+        logits = torch.where(mask[None, None, None], logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths, scale: float | None = None):
+    """Single-token decode attention oracle.
+
+    q:(B,H,D); k_cache,v_cache:(B,S,KH,D); lengths:(B,) valid KV lengths.
+    Returns (B,H,D)."""
+    B, H, D = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qg = (q.to(torch.float32) * scale).reshape(B, KH, G, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.to(torch.float32))
+    mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None]  # (B,S)
+    logits = torch.where(mask[:, None, None, :], logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, H, D).to(q.dtype)

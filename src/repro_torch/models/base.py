@@ -1,0 +1,139 @@
+"""Architecture configs of the LM model zoo.
+
+Parameters are nested dicts of tensors with *stacked* per-layer leaves (a
+leading L dimension), the reference package's layout; the port runs a layer
+stack as a Python loop over views ``w[l]`` of those leaves. The mesh and
+sharding rules of the reference come with the distributed port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+Shapes = SHAPES
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    mlp_act: str = "silu_gated"  # or "gelu"
+    # --- MoE ---
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_shared_experts: int = 0
+    moe_shared_d_ff: int = 0
+    moe_dense_residual: bool = False  # arctic: dense FFN in parallel
+    moe_capacity_factor: float = 1.25
+    # "einsum": GShard one-hot dispatch (SPMD-friendly baseline)
+    # "scatter": sort-free scatter/gather dispatch — no O(T·E·C) one-hots,
+    #            no dispatch matmul flops (see EXPERIMENTS.md §Perf/moe)
+    moe_dispatch: str = "einsum"
+    # pad the expert dim so it divides the `model` axis and EP sharding
+    # engages (e.g. qwen2-moe 60 -> 64); padded experts are router-masked
+    moe_pad_experts: int = 0
+    # repeat-KV + zero-pad attention heads to this count inside train/prefill
+    # attention so the score tensor's head dim divides the `model` axis
+    # (llava 56H kv8 -> 64 MHA-view heads). Exact-math: repeat preserves the
+    # GQA q->kv mapping; padded q heads are sliced off before the output
+    # projection. Decode is untouched (memory-bound, caches keep KH heads).
+    tp_pad_heads: int = 0
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    slstm_every: int = 0  # xlstm: every k-th layer is sLSTM
+    attn_every: int = 0  # zamba2: shared attn block after every k SSM layers
+    sliding_window: int = 0  # cap attention window (hybrid long-context)
+    # --- enc-dec / frontends ---
+    encoder_layers: int = 0
+    frontend: str = "none"  # "audio" | "vision" (STUB: embeddings provided)
+    frontend_tokens: int = 0  # patches/frames prepended to the sequence
+    # --- numerics / memory / runtime ---
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+    optimizer: str = "adamw"  # "adamw" | "adafactor"
+    optimizer_dtype: str = "float32"  # bf16 moments for the giants
+    accum_steps: int = 1  # gradient accumulation (microbatching) for train
+    act_shard: str = "none"  # "seq": Megatron-SP residual-stream sharding
+    # long-context handling: "full" attention or "skip" (arch can't do 500k)
+    long_context: str = "skip"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    def supports_shape(self, shape: str) -> tuple[bool, str]:
+        if shape == "long_500k" and self.long_context == "skip":
+            return False, (
+                "pure full-attention arch: 500k dense decode is architecturally "
+                "meaningless (see DESIGN.md shape skips)"
+            )
+        return True, ""
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Approximate parameter count (embeddings + stacks), for roofline."""
+    D, F, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    total = V * D  # embed
+    if not cfg.tie_embeddings:
+        total += V * D
+    attn = D * H * hd + 2 * D * KH * hd + H * hd * D
+    if cfg.mlp_act == "silu_gated":
+        mlp = 3 * D * F
+    else:
+        mlp = 2 * D * F
+    if cfg.family == "moe":
+        moe = cfg.moe_experts * 3 * D * cfg.d_ff + D * cfg.moe_experts
+        if cfg.moe_shared_experts:
+            moe += 3 * D * cfg.moe_shared_d_ff
+        if cfg.moe_dense_residual:
+            moe += 3 * D * cfg.d_ff
+        total += L * (attn + moe + 2 * D)
+    elif cfg.family in ("ssm",):
+        din, N = cfg.d_inner, cfg.ssm_state
+        ssm = D * (2 * din + 2 * N + cfg.ssm_heads) + din * D + 2 * D
+        total += L * ssm
+    elif cfg.family == "hybrid":
+        din, N = cfg.d_inner, cfg.ssm_state
+        ssm = D * (2 * din + 2 * N + cfg.ssm_heads) + din * D + 2 * D
+        total += L * ssm + (attn + 3 * D * F + 2 * D)  # one shared block
+    else:
+        total += L * (attn + mlp + 2 * D)
+        if cfg.encoder_layers:
+            total += cfg.encoder_layers * (attn + mlp + 2 * D)
+            total += cfg.n_layers * (attn + 2 * D)  # cross-attention
+    return int(total)

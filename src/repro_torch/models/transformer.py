@@ -1,0 +1,155 @@
+"""Dense decoder stacks: parameter shape trees, prefill and one decode step.
+
+The reference scans one traced layer body over the stacked parameter tree;
+here each stack is a Python loop over the same stacked leaves, layer ``l``
+reading the views ``w[l]``. The MoE, encoder and enc-dec stacks, and the
+training forward, come with their ROADMAP items.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.base import ArchConfig
+
+
+# ---------------------------------------------------------------------------
+# Param shape trees
+# ---------------------------------------------------------------------------
+
+
+def attn_param_shapes(cfg: ArchConfig) -> dict:
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = {
+        "wq_col": (D, H * hd),
+        "wk_col": (D, KH * hd),
+        "wv_col": (D, KH * hd),
+        "wo_row": (H * hd, D),
+    }
+    if cfg.qkv_bias:
+        s.update({"bq_col": (H * hd,), "bk_col": (KH * hd,), "bv_col": (KH * hd,)})
+    return s
+
+
+def mlp_param_shapes(cfg: ArchConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "silu_gated":
+        return {"wg_col": (D, F), "wu_col": (D, F), "wd_row": (F, D)}
+    return {"wu_col": (D, F), "wd_row": (F, D)}
+
+
+def decoder_layer_shapes(cfg: ArchConfig) -> dict:
+    """A dense decoder layer (MoE layers and the enc-dec cross-attention
+    come with their families, ROADMAP Queue 1 item 8)."""
+    return {
+        "ln1": (cfg.d_model,),
+        "ln2": (cfg.d_model,),
+        "attn": attn_param_shapes(cfg),
+        "mlp": mlp_param_shapes(cfg),
+    }
+
+
+def stack_shapes(layer_shapes: dict, n: int) -> dict:
+    def rec(t):
+        if isinstance(t, dict):
+            return {k: rec(v) for k, v in t.items()}
+        return (n, *t)
+
+    return rec(layer_shapes)
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked parameter tree: views, no copies."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def n_stacked(stacked: dict) -> int:
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Embedding (the mesh-sharded lookup comes with distributed)
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return L.embed_tokens(embed, tokens)
+
+
+# ---------------------------------------------------------------------------
+# Dense decoder: prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def decoder_prefill(
+    layers_params: dict,
+    h: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    positions: torch.Tensor,
+    cache_len: int,
+    window: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Forward + emit per-layer K/V caches padded to cache_len:
+    (L, B, cache_len, KH, hd) each, zero past the prompt."""
+    B, S, _ = h.shape
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    n_layers = n_stacked(layers_params)
+    kcs = torch.zeros((n_layers, B, cache_len, KH, hd), dtype=h.dtype, device=h.device)
+    vcs = torch.zeros_like(kcs)
+    for i in range(n_layers):
+        lp = layer_params(layers_params, i)
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_proj_qkv(lp["attn"], hn, cfg)
+        if cfg.rope_theta > 0:
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+        # caches keep the original KH heads; expansion is attention-local
+        qe, ke, ve, Hr = L.expand_heads_for_tp(q, k, v, cfg)
+        att = L.attention_chunked(qe, ke, ve, causal=True, window=window)
+        att = att[:, :, :Hr].reshape(B, S, cfg.n_heads * hd)
+        h = h + att @ lp["attn"]["wo_row"]
+        hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        h = h + L.mlp_block(lp["mlp"], hn2, cfg)
+        kcs[i, :, :S] = k
+        vcs[i, :, :S] = v
+    return h, (kcs, vcs)
+
+
+def decoder_decode_step(
+    layers_params: dict,
+    h: torch.Tensor,  # (B, D) one token's hidden
+    kv_caches: tuple[torch.Tensor, torch.Tensor],  # (L,B,S,KH,hd) ×2
+    lengths: torch.Tensor,  # (B,)
+    cfg: ArchConfig,
+    *,
+    window: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One token for every sequence. The new K/V rows go into the caches in
+    place, at each sequence's ``lengths`` (the reference's jit donates the
+    cache buffers and writes a new array; the port writes into the same
+    tensors and returns them)."""
+    B = h.shape[0]
+    kcs, vcs = kv_caches
+    pos = lengths  # 0-based position of the new token
+    valid = lengths + 1  # rows each sequence attends, the new one included
+    rows = torch.arange(B, device=h.device)
+    for i in range(n_stacked(layers_params)):
+        lp = layer_params(layers_params, i)
+        kc, vc = kcs[i], vcs[i]
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)[:, None, :]  # (B,1,D)
+        q, k, v = L.attn_proj_qkv(lp["attn"], hn, cfg)
+        if cfg.rope_theta > 0:
+            q = L.rope(q, pos[:, None], cfg.rope_theta)
+            k = L.rope(k, pos[:, None], cfg.rope_theta)
+        kc[rows, pos] = k[:, 0]
+        vc[rows, pos] = v[:, 0]
+        att = L.attention_decode(q[:, 0], kc, vc, valid, window=window)
+        h = h + att.reshape(B, -1) @ lp["attn"]["wo_row"]
+        hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+        h = h + L.mlp_block(lp["mlp"], hn2[:, None, :], cfg)[:, 0]
+    return h, (kcs, vcs)

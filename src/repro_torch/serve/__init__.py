@@ -1,0 +1,4 @@
+"""Serving: the continuous-batching LM engine."""
+from repro_torch.serve.engine import Request, ServeEngine
+
+__all__ = ["Request", "ServeEngine"]

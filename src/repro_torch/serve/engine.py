@@ -1,0 +1,156 @@
+"""Continuous-batching serve engine over the zoo's prefill/decode steps.
+
+The reference's slot model: one decode step over a fixed (n_slots,
+cache_len) KV cache; requests map onto free slots, finished slots are
+recycled mid-flight, and prefill runs on a fixed prompt block whose K/V rows
+are copied into the slot cache. Every decode tick runs all slots, free ones
+included (at length 0, attending one row), as the reference does.
+
+Greedy decoding; per-request max_new_tokens and eos termination. The engine
+is synchronous (``step()`` advances one decode tick). Prompts are
+left-padded with token 0 to ``prefill_len`` at positions 0..P-1 and the pad
+tokens are attended, exactly as in the reference. The caches live on
+``device`` (the card unless ``device="cpu"``), beside the parameters, and
+each decode tick writes its K/V rows into them in place.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.zoo import _dtype
+
+
+@dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    rid: int = 0
+    # filled by the engine
+    output: list[int] = field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    def __init__(self, model, params, *, n_slots: int = 4, cache_len: int = 256,
+                 device=None):
+        if model.cfg.family != "dense":
+            raise NotImplementedError(
+                "ServeEngine drives the dense decoder LM; the other families "
+                "are ROADMAP Queue 1 item 8"
+            )
+        self.device = resolve_device(device)
+        leaf = params["embed"]
+        if leaf.device != self.device:
+            raise ValueError(f"parameters on {leaf.device}, engine on {self.device}")
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        cfg = model.cfg
+        Ld, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+        shape = (Ld, n_slots, cache_len, KH, hd)
+        self.k_cache = torch.zeros(shape, dtype=_dtype(cfg), device=self.device)
+        self.v_cache = torch.zeros_like(self.k_cache)
+        self.lengths = np.zeros((n_slots,), np.int32)
+        self.last_token = np.zeros((n_slots,), np.int32)
+        self.slot_req: list[Optional[Request]] = [None] * n_slots
+        self._rid = itertools.count()
+        self.queue: list[Request] = []
+        self.finished: list[Request] = []
+        self.prefill_len = 32  # fixed prompt block (pad/truncate to this)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(a, device=self.device)  # a copy, never a view of `a`
+
+    # -- request lifecycle --------------------------------------------------
+
+    def submit(self, prompt: list[int], max_new_tokens: int = 16,
+               eos_id: Optional[int] = None) -> Request:
+        r = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
+                    eos_id=eos_id, rid=next(self._rid))
+        self.queue.append(r)
+        return r
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    @torch.no_grad()
+    def _admit(self) -> None:
+        """Prefill queued requests into free slots (batched to n_slots)."""
+        free = self._free_slots()
+        take = min(len(free), len(self.queue))
+        if take == 0:
+            return
+        reqs = [self.queue.pop(0) for _ in range(take)]
+        P = self.prefill_len
+        toks = np.zeros((take, P), np.int32)
+        for i, r in enumerate(reqs):
+            p = r.prompt[-P:]
+            toks[i, P - len(p):] = p  # left-pad (positions still 0..P-1)
+        logits, (kcs, vcs) = self.model.prefill(
+            self.params, {"tokens": self._tensor(toks)}, cache_len=self.cache_len
+        )
+        first = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        slots = free[:take]
+        self.k_cache[:, slots] = kcs
+        self.v_cache[:, slots] = vcs
+        for i, r in enumerate(reqs):
+            s = slots[i]
+            self.slot_req[s] = r
+            self.lengths[s] = P
+            tok = int(first[i])
+            r.output.append(tok)
+            self.last_token[s] = tok
+            self._maybe_finish(s)
+
+    def _maybe_finish(self, slot: int) -> None:
+        r = self.slot_req[slot]
+        if r is None:
+            return
+        if (
+            len(r.output) >= r.max_new_tokens
+            or (r.eos_id is not None and r.output and r.output[-1] == r.eos_id)
+            or self.lengths[slot] + 1 >= self.cache_len
+        ):
+            r.done = True
+            self.finished.append(r)
+            self.slot_req[slot] = None
+            self.lengths[slot] = 0
+
+    # -- main loop -----------------------------------------------------------
+
+    @torch.no_grad()
+    def step(self) -> int:
+        """Admit + one decode tick. Returns number of active slots."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        logits, _ = self.model.decode(
+            self.params,
+            {"tokens": self._tensor(self.last_token),
+             "lengths": self._tensor(self.lengths)},
+            (self.k_cache, self.v_cache),
+        )
+        tok = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        for s in active:
+            self.lengths[s] += 1
+            t = int(tok[s])
+            self.slot_req[s].output.append(t)
+            self.last_token[s] = t
+            self._maybe_finish(s)
+        return len(active)
+
+    def run(self, max_ticks: int = 10_000) -> list[Request]:
+        for _ in range(max_ticks):
+            active = self.step()
+            if active == 0 and not self.queue:
+                break
+        return self.finished

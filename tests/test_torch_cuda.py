@@ -6,7 +6,9 @@ machine with a card, run them with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. ``featurize``, ``gather_join`` and
 ``segment_agg`` must equal their plain versions bitwise (dyadic data for
 ``segment_agg``); ``tree_gemm`` within ``atol=1e-5`` (another order of the
-sum over trees).
+sum over trees); the two attention kernels within ``atol=2e-5`` in float32
+and ``2e-2`` in bfloat16 (the reference's kernel-sweep tolerances: the
+online softmax sums in another order than the plain version's full one).
 """
 from __future__ import annotations
 
@@ -186,3 +188,110 @@ def test_tree_gemm_kernel_wide_program_in_feature_chunks(dev):
     want = ref.tree_gemm_ref(t(Xw), t(Aw), t(B), t(C), t(D), t(V), p.base)
     assert np.array_equal(_bits(wide), _bits(small))
     assert float((wide - want).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B,Sq,Skv,KH,D", [
+    (2, 128, 128, 2, 128),  # whole tiles
+    (1, 100, 100, 1, 64),  # ragged, Sq == Skv
+    (2, 37, 203, 2, 32),  # Sq < Skv: causal mask offset by Skv - Sq
+    (3, 1, 77, 1, 16),  # one query row
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_vs_plain(dev, dtype, G, B, Sq, Skv, KH, D, causal):
+    rng = np.random.default_rng(Sq * 1000 + Skv + G)
+    q = _normal(rng, (B, Sq, KH * G, D), dtype, dev)
+    k = _normal(rng, (B, Skv, KH, D), dtype, dev)
+    v = _normal(rng, (B, Skv, KH, D), dtype, dev)
+    before = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("B,S,KH,D", [(4, 1024, 2, 128), (3, 100, 1, 64), (5, 64, 2, 16)])
+def test_decode_attention_kernel_vs_plain(dev, dtype, G, B, S, KH, D):
+    """Lengths from 1 to S, and a cache longer than every length (whose rows
+    past the lengths hold NaN: the kernel must never read them)."""
+    rng = np.random.default_rng(S + G + B)
+    q = _normal(rng, (B, KH * G, D), dtype, dev)
+    k = _normal(rng, (B, S, KH, D), dtype, dev)
+    v = _normal(rng, (B, S, KH, D), dtype, dev)
+    for lengths in ([1] + [S] * (B - 1), rng.integers(1, S + 1, size=B),
+                    rng.integers(1, S // 2 + 1, size=B)):
+        lengths = torch.tensor(np.asarray(lengths), dtype=torch.int32, device=dev)
+        kn, vn = k.clone(), v.clone()
+        for b, n in enumerate(lengths.tolist()):
+            kn[b, n:] = float("nan")
+            vn[b, n:] = float("nan")
+        before = LAUNCHES["decode_attention"]
+        got = ops.decode_attention_op(q, kn, vn, lengths)
+        assert LAUNCHES["decode_attention"] == before + 1
+        want = ref.decode_attention_ref(q, k, v, lengths)
+        assert got.dtype == dtype and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= ATOL[dtype], err
+
+
+def test_decode_attention_kernel_raises_on_an_empty_sequence(dev):
+    """Also when the lengths were checked once and then changed in place
+    (the check is skipped only for an unchanged tensor)."""
+    q = torch.zeros((2, 4, 64), device=dev)
+    k = torch.zeros((2, 16, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="lengths"):
+        ops.decode_attention_op(q, k, k, torch.tensor([3, 0], device=dev))
+    lengths = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    ops.decode_attention_op(q, k, k, lengths)
+    lengths[1] = 0
+    with pytest.raises(ValueError, match="lengths"):
+        ops.decode_attention_op(q, k, k, lengths)
+    lengths[1] = 17  # past the cache
+    with pytest.raises(ValueError, match="lengths"):
+        ops.decode_attention_op(q, k, k, lengths)
+
+
+def test_reduced_granite_serves_the_same_tokens_on_the_card_and_the_cpu(dev):
+    """The reduced granite-3-8b config in float32, the same weights on both
+    devices: greedy serving gives identical tokens (float32 attention on the
+    card's kernels, plain versions on the CPU)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced_config("granite-3-8b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (5, 32, 17, 9, 40)]
+    outs = []
+    for p, d in ((params, "cpu"), (to(params, dev), dev)):
+        eng = ServeEngine(model, p, n_slots=2, cache_len=64, device=d)
+        for i, pr in enumerate(prompts):
+            eng.submit(pr, max_new_tokens=4 + i)
+        before = dict(LAUNCHES)
+        outs.append([r.output for r in sorted(eng.run(max_ticks=200), key=lambda r: r.rid)])
+        if d == dev:
+            assert LAUNCHES["flash_attention"] > before["flash_attention"]
+            assert LAUNCHES["decode_attention"] > before["decode_attention"]
+    assert outs[0] == outs[1]

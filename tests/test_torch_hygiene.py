@@ -40,12 +40,17 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_port_has_the_expected_layout():
     pkg = ROOT / "src" / "repro_torch"
-    for sub in ("ml", "data", "core", "sql", "relational", "exec", "tensor", "kernels"):
+    for sub in ("ml", "data", "core", "sql", "relational", "exec", "tensor", "kernels",
+                "models", "configs", "serve"):
         assert (pkg / sub / "__init__.py").exists(), sub
     assert sorted(p.name for p in (pkg / "kernels" / "csrc").glob("*.cu")) == [
-        "errors.cu", "featurize.cu", "gather_join.cu", "segment_agg.cu",
-        "tree_gemm.cu",
+        "decode_attention.cu", "errors.cu", "featurize.cu", "flash_attention.cu",
+        "gather_join.cu", "segment_agg.cu", "tree_gemm.cu",
     ]
+    # the walk below reaches the LM serving path's modules too
+    for mod in ("models/zoo.py", "models/layers.py", "configs/granite_3_8b.py",
+                "serve/engine.py", "kernels/attention.py"):
+        assert pkg / mod in PORT_FILES, mod
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -55,6 +60,23 @@ def test_no_jax_or_reference_import(path):
         if m.split(".")[0] in FORBIDDEN
     ]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+LIBRARY_KERNELS = ("scaled_dot_product_attention", "torch.compile", "cudnn", "flash_attn",
+                   "xformers", "triton.ops", "cutlass")
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_library_kernel_on_the_port_path(path):
+    """The port's kernels are its own: no module calls PyTorch's fused
+    attention, cuDNN, torch.compile or a package of finished kernels
+    (``chip_smoke.py`` times one library call beside each kernel as a
+    yardstick, outside the port)."""
+    text = path.read_text()
+    assert not [w for w in LIBRARY_KERNELS if w in text], path
 
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
