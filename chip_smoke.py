@@ -42,7 +42,11 @@ In order it
    the model's scores within rtol 1e-5, sums over another order; the
    attention kernels within 2e-2 in bf16 and 2e-5 in f32) and times it, its
    plain version and, where one exists, one PyTorch library call computing
-   the same function, beside its bound on an H100;
+   the same function, beside its bound on an H100; the attention kernels
+   also L2-cold (bursts rotating over copies of their arguments), and their
+   library time is that of the fastest ``scaled_dot_product_attention``
+   backend that takes the call (with ``is_causal=True`` tried beside the
+   boolean mask where Sq == Skv), named in the output;
 4. zeroes every kernel's launch count and drives the main path: the
    prediction query for three bindings of ``:t``, checked against the
    numpy host interpreter ``run_pipeline``; the dashboard plan, global and
@@ -65,6 +69,7 @@ when the rest of the repository is not beside it.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -111,8 +116,9 @@ KERNELS = {
     "segment_agg": ("repro_torch.kernels.relational",
                     "src/repro_torch/kernels/csrc/segment_agg.cu",
                     "src/repro/kernels/relational.py:143"),
+    # the main path's bf16 kernel; float32 takes csrc/flash_attention.cu
     "flash_attention": ("repro_torch.kernels.attention",
-                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention.py:63"),
     "decode_attention": ("repro_torch.kernels.attention",
                          "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -351,10 +357,11 @@ class Recorder:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Device time of one call: CUDA events around a burst of ``reps`` calls
+    """Time of one call: CUDA events around a burst of ``reps`` calls
     enqueued back to back, so the host's work for one call overlaps the
     card's for the last (where the host is the slower, this is its time);
-    the median of three bursts."""
+    the median of three bursts. For the plain versions, which may do host
+    work that a CUDA graph cannot hold."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -369,6 +376,78 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def time_graph_ms(fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured into one CUDA graph,
+    CUDA events around a replay; the median of three replays. The host's
+    dispatch (Python, argument checks, launches) is left out, so a call the
+    host cannot issue as fast as the card runs it is still timed by the
+    card. Kernels and library calls are timed so."""
+    fn()  # the first call of a site may check its lengths on the host
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the allocator on a side stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def time_cold_ms(call, args: tuple, kwargs: dict, moved: int, reps_per_copy: int = 10
+                 ) -> float:
+    """Device time of one call with its inputs out of L2: bursts rotate
+    over enough copies of the arguments that a rotation reads over 100 MB
+    (``moved`` bytes a call), twice the 50 MB L2, so no call finds its
+    inputs left there by the previous use of its copy."""
+    n = max(2, -(-100_000_000 // max(moved, 1)))
+    copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args) for _ in range(n)]
+    for c in copies:  # the decode wrapper checks each new lengths tensor once
+        call(*c, **kwargs)
+    rotation = itertools.cycle(copies)
+    return time_graph_ms(lambda: call(*next(rotation), **kwargs), n * reps_per_copy)
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def fastest_sdpa(variants: dict) -> tuple[float, str]:
+    """The fastest ``scaled_dot_product_attention`` backend that accepts
+    the call: each variant (label -> a call) under each backend that takes
+    it; returns (ms, "BACKEND label")."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best: tuple[float, str] | None = None
+    for label, fn in variants.items():
+        for name in SDPA_BACKENDS:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                try:
+                    fn()
+                    torch.cuda.synchronize()
+                except RuntimeError:  # this backend refuses the call
+                    continue
+                ms = time_graph_ms(fn, 20)
+            if best is None or ms < best[0]:
+                best = (ms, f"{name} {label}")
+    check(best is not None, f"no SDPA backend took {sorted(variants)}")
+    return best
 
 
 def nbytes(*ts) -> int:
@@ -480,11 +559,13 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         if causal:
             ar = torch.arange(Skv, device=q.device)
             mask = ar[:Sq, None] + (Skv - Sq) >= ar[None, :]
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, scale=scale, enable_gqa=True)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = {"boolean mask": lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
+                                                enable_gqa=True)}
+        if causal and Sq == Skv:
+            library["is_causal"] = lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
+                                                enable_gqa=True)
 
         shape = f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} {str(q.dtype)[6:]}"
     elif name == "decode_attention":
@@ -500,11 +581,10 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         ops_ = 4 * H * rows * D
         rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
         valid = (torch.arange(S, device=q.device)[None, :] < lengths[:, None])[:, None, None]
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=valid, scale=scale, enable_gqa=True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = {"boolean length mask": lambda: sdpa(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=valid,
+            scale=scale, enable_gqa=True)}
 
         span = f"{int(lengths.min())}..{int(lengths.max())}"
         shape = f"B={B} S={S} lengths {span} H={H} KH={KH} D={D} {str(q.dtype)[6:]}"
@@ -531,12 +611,17 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
     torch.cuda.synchronize()
     b_ms, b_by = bound(moved, ops_, rate)
     run = lambda: kern(*args, **kwargs)  # noqa: E731
-    return {
+    row = {
         "name": name, "shape": shape, "max_abs_err": err,
-        "ms": time_ms(run, 50), "plain_ms": time_ms(plain, 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(library, 20) if library is not None else None,
+        "ms": time_graph_ms(run, 50), "plain_ms": time_ms(plain, 10),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
+        "cold_ms": time_cold_ms(kern, args, kwargs, moved) if name in ATTENTION else None,
     }
+    if isinstance(library, dict):  # attention: the fastest SDPA backend
+        row["library_ms"], row["library"] = fastest_sdpa(library)
+    elif library is not None:
+        row["library_ms"] = time_graph_ms(library, 20)
+    return row
 
 
 def parity_phase(calls) -> dict[str, dict]:
@@ -546,9 +631,10 @@ def parity_phase(calls) -> dict[str, dict]:
     for name, label, args, kwargs in calls:
         row = parity_site(name, args, kwargs, dyadic=label.startswith("dashboard"))
         print(f"parity {name:<16} [{label}] {row['shape']}: max_abs_err="
-              f"{row['max_abs_err']!r} ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
-              f"bound_ms={row['bound_ms']!r} ({row['bound_by']}) "
-              f"library_ms={row['library_ms']!r}", flush=True)
+              f"{row['max_abs_err']!r} ms={row['ms']!r} cold_ms={row['cold_ms']!r} "
+              f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
+              f"({row['bound_by']}) library_ms={row['library_ms']!r}"
+              + (f" (fastest: {row['library']})" if row["library"] else ""), flush=True)
         best = rows.get(name)
         if best is None or row["bound_ms"] > best["bound_ms"]:
             if best is not None:
@@ -911,7 +997,7 @@ def main() -> int:
             "launches": counts[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"],
+            "cold_ms": row["cold_ms"], "library": row["library"], "shape": row["shape"],
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

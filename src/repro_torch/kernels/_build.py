@@ -43,13 +43,17 @@ SIGNATURES: dict[str, list] = {
     "raven_gather_join": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
     # vals, w, sid, partials, counts, sums, mins, maxs, N, C, S, blocks, stream
     "raven_segment_agg": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # q, k, v, out, dtype, B, Sq, Skv, H, KH, D, scale, causal, stream
-    "raven_flash_attention": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+    # q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal, stream
+    "raven_flash_attention_f32": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
     ],
-    # q, k_cache, v_cache, lengths, out, dtype, B, S, H, KH, D, scale, stream
+    "raven_flash_attention_bf16": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+    ],
+    # q, k_cache, v_cache, lengths, out, scratch, dtype, B, S, H, KH, D, scale,
+    # n_split, chunk, stream
     "raven_decode_attention": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
     ],
 }
 

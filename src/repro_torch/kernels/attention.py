@@ -2,9 +2,13 @@
 decode step's cache attention.
 
 They replace the Pallas ``flash_attention`` and ``decode_attention`` kernels
-of the reference package; the kernels themselves are
-``csrc/flash_attention.cu`` and ``csrc/decode_attention.cu``. Both take
-float32 or bfloat16, sum in float32 and return q's type.
+of the reference package. Both take float32 or bfloat16, sum in float32 and
+return q's type. Flash attention has two kernels, chosen by dtype:
+bfloat16 runs on the tensor cores (``csrc/flash_attention_wgmma.cu``),
+float32 on CUDA-core FMAs (``csrc/flash_attention.cu``), because the tensor
+cores take float32 only as TF32, which would break float32's 2e-5 parity.
+Decode attention is one split-KV kernel in two passes
+(``csrc/decode_attention.cu``), split by :func:`decode_splits`.
 """
 from __future__ import annotations
 
@@ -15,6 +19,12 @@ from repro_torch.kernels import _build
 D_MAX = 128  # the largest head dim the kernels take (a multiple of 8)
 G_MAX = 16  # query heads per KV head the decode kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH = {torch.float32: "raven_flash_attention_f32",
+          torch.bfloat16: "raven_flash_attention_bf16"}
+
+SPLIT_TILE = 64  # keys of the bf16 decode kernel's tile: a chunk is whole tiles
+SPLIT_MIN_ROWS = 128  # the shortest chunk worth a block of its own
+SPLIT_BLOCKS = 4 * 132  # blocks a decode call aims at: four per H100 SM
 
 
 def _check_operands(name: str, operands) -> None:
@@ -55,13 +65,31 @@ def flash_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
         return out
     dev = q.device
     with torch.cuda.device(dev):
-        err = _build.lib().raven_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+        err = getattr(_build.lib(), _FLASH[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, H, KH, D, float(scale), int(bool(causal)), _build.stream_ptr(dev),
         )
     _build.check("flash_attention", err)
     _build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def decode_splits(S: int, B: int, KH: int) -> tuple[int, int]:
+    """How the decode kernel cuts a cache of S rows: ``(n_split, chunk)``,
+    split i taking rows [i * chunk, (i + 1) * chunk). It depends on S and
+    B * KH only, never on the lengths (reading them would synchronise the
+    host with the card): enough splits that B * KH * n_split blocks come
+    near ``SPLIT_BLOCKS``, no chunk shorter than ``SPLIT_MIN_ROWS`` unless S
+    is, every chunk a whole number of ``SPLIT_TILE``-row tiles, and no split
+    empty of rows. Splits past a sequence's length cost a block that writes
+    an empty partial."""
+    if S < 1 or B < 1 or KH < 1:
+        raise ValueError(f"decode_splits: S={S}, B={B}, KH={KH} must be positive")
+    want = max(1, SPLIT_BLOCKS // (B * KH))
+    n = min(want, -(-S // SPLIT_MIN_ROWS))
+    chunk = -(-S // n)
+    chunk = -(-chunk // SPLIT_TILE) * SPLIT_TILE
+    return -(-S // chunk), chunk
 
 
 def _check_lengths(lengths: torch.Tensor, S: int) -> None:
@@ -100,12 +128,16 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float) -> torch.Ten
     if B == 0:
         return out
     _check_lengths(lengths, S)
+    n_split, chunk = decode_splits(S, B, KH)
+    # pass 1's partials: acc (B, KH, n_split, G, D), then (m, l) a head
+    scratch = torch.empty(B * KH * n_split * (H // KH) * (D + 2), dtype=torch.float32,
+                          device=q.device)
     dev = q.device
     with torch.cuda.device(dev):
         err = _build.lib().raven_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], B, S, H, KH, D, float(scale),
-            _build.stream_ptr(dev),
+            out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], B, S, H, KH, D,
+            float(scale), n_split, chunk, _build.stream_ptr(dev),
         )
     _build.check("decode_attention", err)
     _build.LAUNCHES["decode_attention"] += 1

@@ -1,5 +1,6 @@
-// Shared by the two attention kernels: element loads and stores in the
-// storage type (float or bf16, sums always in float) and warp reductions.
+// Shared by the attention kernels' CUDA-core code: float loads, stores in
+// the storage type (float or bf16, sums always in float), warp reductions
+// and the online-softmax step.
 #pragma once
 #include <cuda_bf16.h>
 
@@ -18,17 +19,6 @@ __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
 }
 
 // Four consecutive floats to 8-byte (bf16) or 16-byte (float) aligned

@@ -17,3 +17,19 @@ static inline unsigned raven_grid(long long work, int threads) {
   if (blocks < 1) blocks = 1;
   return static_cast<unsigned>(blocks);
 }
+
+// Raises a kernel's dynamic shared-memory limit the first time it is launched
+// on each device, not on every call (`done` is the caller's static bit set of
+// devices): the call is not stream-ordered, and leaving it out of later calls
+// keeps their launch path short and capturable into a CUDA graph.
+template <typename F>
+static inline cudaError_t raven_smem_limit(F* kernel, int bytes, unsigned long long* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}

@@ -1,24 +1,24 @@
-// flash_attention: online-softmax attention with GQA and a causal mask
-// offset by Skv - Sq.
+// flash_attention for float32: online-softmax attention with GQA and a
+// causal mask offset by Skv - Sq, on CUDA cores.
 //
 // Replaces the Pallas kernel `flash_attention` of
-// src/repro/kernels/flash_attention.py:63 (pallas_call at line 83), reached
-// from an LM's prefill through models/layers.py `attention_chunked`.
+// src/repro/kernels/flash_attention.py:63 (pallas_call at line 83) for
+// float32 inputs; bfloat16, the LM prefill's type, takes the tensor-core
+// kernel of flash_attention_wgmma.cu. The tensor cores run float32 only as
+// TF32 (10 mantissa bits), which would break the 2e-5 parity of float32
+// attention with its plain version, so float32 stays on CUDA-core FMAs.
 //
-// Bound on an H100: at the serving path's prefill (B = 16, Sq = Skv = 512,
-// H = 32, KH = 8, D = 128, bf16) the causal half of the two contractions is
-// about 3.4e10 operations a layer, 35 us at the 989 TFLOP/s of the tensor
-// cores, while reading q, k, v and writing the output once is 168 MB, 50 us
-// at 3.35 TB/s: near the ridge, so a fast version needs both the tensor cores
-// and a single pass over the bytes.
+// Bound on an H100: at a prefill of B = 16, Sq = Skv = 512, H = 32, KH = 8,
+// D = 128 the causal half of the two contractions is about 3.4e10
+// operations, 0.51 ms at the 67 TFLOP/s of f32 FMAs outside the tensor
+// cores, against 0.1 ms for reading q, k, v and writing the output once
+// (336 MB at 3.35 TB/s): operations.
 //
-// Design (simple first: CUDA-core FMAs, no tensor cores, f32 inputs never
-// go through TF32): on the TPU the grid walks the K/V blocks in order and the
-// running max, normaliser and accumulator stay in VMEM across grid steps.
-// Here one block owns BQ query rows of one (batch, head) and loops over K/V
-// tiles of BK rows itself, staged in shared memory as floats; the running
-// max and normaliser sit in shared memory, the accumulator in registers, all
-// in f32, and the output is written once at the end in q's type. The query
+// Design: on the TPU the grid walks the K/V blocks in order and the running
+// max, normaliser and accumulator stay in VMEM across grid steps. Here one
+// block owns BQ query rows of one (batch, head) and loops over K/V tiles of
+// BK rows itself, staged in shared memory; the running max and normaliser
+// sit in shared memory, the accumulator in registers, all in f32. The query
 // tile is read once and each K/V tile once per block, so K/V are read
 // Sq / BQ times per head and G times per KV head. Tiles wholly above the
 // causal diagonal are skipped; ragged Sq and Skv are masked (rows past Sq
@@ -39,7 +39,8 @@ constexpr int PS = BK + 4;          //   all 32 banks
 constexpr int SMEM_FLOATS = BQ * QS + BK * KS + BK * D_MAX + BQ * PS + 3 * BQ;
 constexpr int SMEM_BYTES = SMEM_FLOATS * static_cast<int>(sizeof(float));
 
-template <typename T>
+using T = float;
+
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
@@ -203,28 +204,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-           int Skv, int H, int KH, int D, float scale, int causal, cudaStream_t st) {
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+}  // namespace
+
+// q, out: (B, Sq, H, D) float32; k, v: (B, Skv, KH, D) float32; contiguous,
+// 16-byte aligned; D % 8 == 0, D <= 128, H % KH == 0.
+extern "C" int raven_flash_attention_f32(const void* q, const void* k, const void* v,
+                                         void* out, int B, int Sq, int Skv, int H, int KH,
+                                         int D, float scale, int causal, void* stream) {
+  static unsigned long long done = 0;
+  const cudaError_t attr = raven_smem_limit(flash_attention_kernel, SMEM_BYTES, &done);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T><<<grid, THREADS, SMEM_BYTES, st>>>(
+  flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), Sq, Skv, H, KH, D, scale, causal);
   RAVEN_RETURN_LAUNCH_STATUS();
-}
-
-}  // namespace
-
-// dtype: 0 float32, 1 bfloat16. q, out: (B, Sq, H, D); k, v: (B, Skv, KH, D),
-// contiguous, 16-byte aligned; D % 8 == 0, D <= 128, H % KH == 0.
-extern "C" int raven_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, int dtype, int B, int Sq, int Skv,
-                                     int H, int KH, int D, float scale, int causal,
-                                     void* stream) {
-  cudaStream_t st = RAVEN_STREAM(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal, st);
-  return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal, st);
 }

@@ -250,6 +250,91 @@ def test_decode_attention_kernel_vs_plain(dev, dtype, G, B, S, KH, D):
         assert err <= ATOL[dtype], err
 
 
+def _attention_err(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    return float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_at_the_serving_prefill(dev, dtype):
+    """granite-3-8b's prefill of 16 prompts of 512 tokens (bf16 takes the
+    tensor-core kernel, float32 the CUDA-core one; float32 at B = 2)."""
+    B = 16 if dtype == torch.bfloat16 else 2
+    rng = np.random.default_rng(16)
+    q = _normal(rng, (B, 512, 32, 128), dtype, dev)
+    k = _normal(rng, (B, 512, 8, 128), dtype, dev)
+    v = _normal(rng, (B, 512, 8, 128), dtype, dev)
+    before = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert _attention_err(got, want, dtype) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 128])
+@pytest.mark.parametrize("Sq", [1, 37, 129, 203])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_kernel_pads_head_dims_and_ragged_rows(dev, D, Sq, causal):
+    """Head dims that are a multiple of 8 but not of 16 are zero-padded in
+    shared memory; Sq of 1, 37, 129 and 203 rows against Skv = 203 keys
+    (none a whole tile), GQA 4."""
+    rng = np.random.default_rng(D * 1000 + Sq)
+    q = _normal(rng, (2, Sq, 8, D), torch.bfloat16, dev)
+    k = _normal(rng, (2, 203, 2, D), torch.bfloat16, dev)
+    v = _normal(rng, (2, 203, 2, D), torch.bfloat16, dev)
+    got = ops.flash_attention_op(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert _attention_err(got, want, torch.bfloat16) <= 2e-2
+
+
+def test_decode_attention_kernel_at_the_serving_tick(dev):
+    """granite-3-8b's decode tick: 16 slots over a 1,024-row cache, lengths
+    513..576, bf16; rows past the lengths hold NaN. The result repeats bit
+    for bit."""
+    rng = np.random.default_rng(1024)
+    q = _normal(rng, (16, 32, 128), torch.bfloat16, dev)
+    k = _normal(rng, (16, 1024, 8, 128), torch.bfloat16, dev)
+    v = _normal(rng, (16, 1024, 8, 128), torch.bfloat16, dev)
+    lengths = torch.tensor(rng.integers(513, 577, size=16), dtype=torch.int32, device=dev)
+    kn, vn = k.clone(), v.clone()
+    for b, n in enumerate(lengths.tolist()):
+        kn[b, n:] = float("nan")
+        vn[b, n:] = float("nan")
+    got = ops.decode_attention_op(q, kn, vn, lengths)
+    again = ops.decode_attention_op(q, kn, vn, lengths)
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    assert _attention_err(got, want, torch.bfloat16) <= 2e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (1, 1, 16), (3, 2, 8)])
+def test_decode_attention_kernel_at_chunk_edges(dev, dtype, B, KH, G):
+    """Lengths of 1, chunk - 1, chunk, chunk + 1 and S rows for the split
+    ``decode_splits`` makes (B * KH = 1: every split of one sequence), rows
+    past the lengths NaN; each result within tolerance and repeated bit for
+    bit by a second call."""
+    from repro_torch.kernels.attention import decode_splits
+
+    S, D = 1024, 128
+    n_split, chunk = decode_splits(S, B, KH)
+    assert n_split > 1
+    rng = np.random.default_rng(B * 100 + G)
+    q = _normal(rng, (B, KH * G, D), dtype, dev)
+    k = _normal(rng, (B, S, KH, D), dtype, dev)
+    v = _normal(rng, (B, S, KH, D), dtype, dev)
+    for n in (1, chunk - 1, chunk, chunk + 1, S):
+        lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+        kn, vn = k.clone(), v.clone()
+        kn[:, n:] = float("nan")
+        vn[:, n:] = float("nan")
+        got = ops.decode_attention_op(q, kn, vn, lengths)
+        want = ref.decode_attention_ref(q, k, v, lengths)
+        assert _attention_err(got, want, dtype) <= ATOL[dtype], n
+        assert torch.equal(got, ops.decode_attention_op(q, kn, vn, lengths)), n
+
+
 def test_decode_attention_kernel_raises_on_an_empty_sequence(dev):
     """Also when the lengths were checked once and then changed in place
     (the check is skipped only for an unchanged tensor)."""

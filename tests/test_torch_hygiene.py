@@ -45,7 +45,7 @@ def test_port_has_the_expected_layout():
         assert (pkg / sub / "__init__.py").exists(), sub
     assert sorted(p.name for p in (pkg / "kernels" / "csrc").glob("*.cu")) == [
         "decode_attention.cu", "errors.cu", "featurize.cu", "flash_attention.cu",
-        "gather_join.cu", "segment_agg.cu", "tree_gemm.cu",
+        "flash_attention_wgmma.cu", "gather_join.cu", "segment_agg.cu", "tree_gemm.cu",
     ]
     # the walk below reaches the LM serving path's modules too
     for mod in ("models/zoo.py", "models/layers.py", "configs/granite_3_8b.py",
