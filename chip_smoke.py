@@ -42,17 +42,20 @@ In order it
    the model's scores within rtol 1e-5, sums over another order; the
    attention kernels within 2e-2 in bf16 and 2e-5 in f32) and times it, its
    plain version and, where one exists, one PyTorch library call computing
-   the same function, beside its bound on an H100; the attention kernels
-   also L2-cold (bursts rotating over copies of their arguments), and their
+   the same function, beside its bound on an H100, and again L2-cold
+   (bursts rotating over copies of its arguments); the attention kernels'
    library time is that of the fastest ``scaled_dot_product_attention``
    backend that takes the call (with ``is_causal=True`` tried beside the
-   boolean mask where Sq == Skv), named in the output;
+   boolean mask where Sq == Skv), named in the output; then ``tree_gemm``
+   once more on the hospital rows with +inf, -inf and NaN put in, within
+   1e-5 of its plain version and NaN in the same places;
 4. zeroes every kernel's launch count and drives the main path: the
    prediction query for three bindings of ``:t``, checked against the
    numpy host interpreter ``run_pipeline``; the dashboard plan, global and
    segmented, bitwise against a numpy host oracle and between
    ``RAVEN_KERNELS`` on and off; then reads the counts, each of which must
-   be above 0 on the plan that reaches its kernel;
+   be above 0 on the plan that reaches its kernel; and profiles one more
+   hospital request (the card's busy time and idle share);
 5. zeroes the counts again and serves the LM workload, printing prefill
    time per admission, the median decode tick, time to first token and
    generated tokens per second; reads the counts (40 ``flash_attention``
@@ -411,6 +414,16 @@ def time_graph_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def copy_arg(a):
+    """A tensor argument cloned, a tuple of tensors (a packed program)
+    cloned member by member, anything else as it is."""
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple) and a and all(torch.is_tensor(m) for m in a):
+        return type(a)(*(m.clone() for m in a))
+    return a
+
+
 def time_cold_ms(call, args: tuple, kwargs: dict, moved: int, reps_per_copy: int = 10
                  ) -> float:
     """Device time of one call with its inputs out of L2: bursts rotate
@@ -418,7 +431,7 @@ def time_cold_ms(call, args: tuple, kwargs: dict, moved: int, reps_per_copy: int
     (``moved`` bytes a call), twice the 50 MB L2, so no call finds its
     inputs left there by the previous use of its copy."""
     n = max(2, -(-100_000_000 // max(moved, 1)))
-    copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args) for _ in range(n)]
+    copies = [tuple(copy_arg(a) for a in args) for _ in range(n)]
     for c in copies:  # the decode wrapper checks each new lengths tensor once
         call(*c, **kwargs)
     rotation = itertools.cycle(copies)
@@ -464,12 +477,28 @@ def bound(bytes_moved: int, ops: int, flops_per_s: float = FP32_FLOPS_PER_S
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def tree_gemm_fp64(x, A, B, C, D, V, base) -> torch.Tensor:
-    """The plain version's chain with the sum over trees in float64."""
+def tree_gemm_match(x, A, B, C, D) -> torch.Tensor:
+    """(N, T, L) float64: 1 where the row reaches the leaf (the plain
+    version's chain up to the match)."""
     S = torch.einsum("nf,tfi->nti", x, A)
     P = torch.einsum("nti,til->ntl", (S <= B[None]).to(torch.float32), C)
-    match = (P == D[None]).to(torch.float64)
+    return (P == D[None]).to(torch.float64)
+
+
+def tree_gemm_fp64(x, A, B, C, D, V, base) -> torch.Tensor:
+    """The plain version's chain with the sum over trees in float64."""
+    match = tree_gemm_match(x, A, B, C, D)
     return (torch.einsum("ntl,tl->n", match, V.to(torch.float64)) + base).to(torch.float32)
+
+
+def tree_gemm_path_ops(x, A, B, C, D) -> int:
+    """The operations this run's rows need: per row and tree, one compare
+    per node on the root-to-leaf path the row takes (the depth of the leaf
+    it reaches: its count of nonzero entries of C) and one add of the
+    leaf's value."""
+    depth = (C != 0).sum(dim=1).to(torch.float64)  # (T, L)
+    compares = torch.einsum("ntl,tl->", tree_gemm_match(x, A, B, C, D), depth)
+    return int(compares) + x.shape[0] * A.shape[0]
 
 
 def check_attention(got, want, name: str) -> float:
@@ -505,7 +534,7 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         ops_ = N * (2 * Kn + Vtot)
         shape = f"N={N} Kn={Kn} Kc={cat.shape[1]} Vtot={Vtot}"
     elif name == "tree_gemm":
-        x, A, B, C, D, V, base = args
+        x, A, B, C, D, V, base, packed = args
         xp = torch.nn.functional.pad(x, (0, A.shape[1] - x.shape[1]))
         plain = lambda: ref.tree_gemm_ref(xp, A, B, C, D, V, base)  # noqa: E731
         got, want = kern(*args), plain()
@@ -517,13 +546,11 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         N, Fx = x.shape
         T, _, I = A.shape
         L = C.shape[2]
-        moved = nbytes(x, A, B, C, D, V, got)
-        # what this program's trees need, padding left out: A is one-hot, so
-        # S = x.A is a gather and one compare per internal node; then
-        # P = D.C over internal x leaf nodes and y += match.V over the leaves
-        n_int = (A != 0).any(dim=1).sum(dim=1).double()  # per tree
-        n_leaf = (D >= 0).sum(dim=1).double()
-        ops_ = N * int((n_int + 2 * n_int * n_leaf + 2 * n_leaf).sum())
+        # the least work of the function: the compares on the path each row
+        # takes through each tree and the sum over trees (a traversal needs
+        # no more); bytes: x, the output and the packed program, each once
+        moved = nbytes(x, got, *packed)
+        ops_ = tree_gemm_path_ops(xp, A, B, C, D)
         shape = f"N={N} F={Fx} (program {A.shape[1]}) T={T} I={I} L={L}"
     elif name == "gather_join":
         fk, skeys, spay = args
@@ -615,7 +642,7 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         "name": name, "shape": shape, "max_abs_err": err,
         "ms": time_graph_ms(run, 50), "plain_ms": time_ms(plain, 10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
-        "cold_ms": time_cold_ms(kern, args, kwargs, moved) if name in ATTENTION else None,
+        "cold_ms": time_cold_ms(kern, args, kwargs, moved),
     }
     if isinstance(library, dict):  # attention: the fastest SDPA backend
         row["library_ms"], row["library"] = fastest_sdpa(library)
@@ -644,6 +671,47 @@ def parity_phase(calls) -> dict[str, dict]:
             best["max_abs_err"] = max(row["max_abs_err"], best["max_abs_err"])
     check(sorted(rows) == sorted(KERNELS), f"kernels reached: {sorted(rows)}")
     return rows
+
+
+def non_finite_tree_gemm(calls) -> float:
+    """The hospital query's ``tree_gemm`` call again, with x widened to the
+    program's padded width by random columns that no tree tests, and +inf,
+    -inf and NaN put in three of every four rows (one entry, or two in every
+    fourth row), in features the trees test and in ones they do not: the
+    kernel against the plain version within 1e-5 (in the GEMM form
+    0 * inf = NaN poisons a row's other nodes, so a non-finite entry in an
+    untested column still moves the row's decisions). Values are finite, so
+    no score is NaN; the NaN places are checked all the same. Returns the
+    largest difference."""
+    from repro_torch.kernels import ref
+
+    x, A, B, C, D, V, base, packed = next(a for n, _, a, _ in calls if n == "tree_gemm")
+    N, Fx = x.shape[0], A.shape[1]
+    rng = np.random.default_rng(5)
+    used = torch.unique(packed.nodes[..., 0]).cpu().numpy()
+    used = used[(used >= 0) & (used < Fx)]
+    unused = np.setdiff1d(np.arange(Fx), used)
+    check(unused.size > 0, "no untested column to poison")
+    xn = np.concatenate([x.cpu().numpy(), rng.normal(
+        size=(N, Fx - x.shape[1])).astype(np.float32)], axis=1)
+    wide = torch.tensor(xn, device=x.device)
+    rows = np.flatnonzero(np.arange(N) % 4 != 0)
+    for k, r in enumerate(rows):
+        pool = used if k % 2 else unused
+        cols = rng.choice(pool, size=2 if r % 4 == 3 else 1, replace=False)
+        xn[r, cols] = rng.choice([np.inf, -np.inf, np.nan], size=cols.size)
+    xt = torch.tensor(xn, device=x.device)
+    got = wrapper("tree_gemm")(xt, A, B, C, D, V, base, packed)
+    want = ref.tree_gemm_ref(xt, A, B, C, D, V, base)
+    check(torch.equal(torch.isnan(got), torch.isnan(want)), "tree_gemm NaN places")
+    fin = ~torch.isnan(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    changed = int((got != wrapper("tree_gemm")(wide, A, B, C, D, V, base, packed)).sum())
+    print(f"parity tree_gemm [hospital, non-finite] {len(rows)} of {N} rows with "
+          f"+-inf/NaN ({unused.size} untested features of {Fx}): max_abs_err={err!r}, "
+          f"{changed} scores moved by them", flush=True)
+    check(err <= 1e-5, f"tree_gemm on non-finite rows off by {err}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -872,6 +940,29 @@ def profile_lm(model, params, requests, dev, tick_ms: float) -> None:
           f"{1 - parts['decode tick'] / tick_ms!r}", flush=True)
 
 
+def profile_hospital(cp, db, t: float, dev, request_ms: float) -> None:
+    """Where a hospital request's time goes, by torch.profiler: one request
+    (warm), its host time, the card's busy time (the sum of its kernels: one
+    stream) and the kernels that take most of it; the idle share is set
+    against the median of the unprofiled requests, since profiling slows
+    the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, wall = run_hospital(cp, db, t, dev)
+    kernels = device_ms_by_kernel(prof)
+    busy = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    print(f"profile hospital request: host {wall!r} ms under the profiler, card busy "
+          f"{busy!r} ms in {sum(c for c, _ in kernels.values())} kernels; top (launches, "
+          "ms): " + "; ".join(f"{name[:60]} ({c}, {ms:.4f})" for name, (c, ms) in top),
+          flush=True)
+    print(f"profile: a hospital request's card busy time is {busy!r} ms of the "
+          f"unprofiled median request {request_ms!r} ms: idle share "
+          f"{1 - busy / request_ms!r}", flush=True)
+
+
 def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
     tokens = sum(len(o) for o in outputs.values())
     ttft = sorted(traced.first_token_s.values())
@@ -939,13 +1030,17 @@ def main() -> int:
         _, _, wall = serve_lm(model, params, requests, dev, recorder=rec)
         print(f"lm warm-up served {LM_REQUESTS} requests in {wall:.2f} s", flush=True)
     rows = parity_phase(rec.calls)
+    rows["tree_gemm"]["max_abs_err"] = max(rows["tree_gemm"]["max_abs_err"],
+                                           non_finite_tree_gemm(rec.calls))
     del rec
 
     # the main path, counted
     for name in KERNELS:
         _build.LAUNCHES[name] = 0
+    request_ms = []
     for t in thresholds:
         count, avg, ms = run_hospital(cp, db, t, dev)
+        request_ms.append(ms)
         want_count, want_avg = hospital_oracle(case, t)
         print(f"hospital t={t!r}: COUNT={count} AVG={avg!r} host COUNT={want_count} "
               f"AVG={want_avg!r} request_ms={ms!r}", flush=True)
@@ -961,6 +1056,7 @@ def main() -> int:
     check(counts["gather_join"] > 0 and counts["segment_agg"] > model_counts["segment_agg"],
           f"a relational kernel was not launched: {counts}")
     print("dashboard: global and segmented bitwise vs host and on vs off", flush=True)
+    profile_hospital(cp, db, thresholds[1], dev, float(np.median(request_ms)))
 
     # the LM serving path, counted
     for name in KERNELS:

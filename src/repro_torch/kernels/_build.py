@@ -35,9 +35,9 @@ _L = ctypes.c_longlong
 SIGNATURES: dict[str, list] = {
     # num, cat, offset, scale, cat_values, val_col, out, N, Kn, Kc, Vtot, stream
     "raven_featurize": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # x, A, B, C, D, V, out, base, N, Fx, T, F, I, L, FC, stream
+    # x, nodes, leaves, counts, out, base, N, Fx, T, I, L, W, chunk, stage_x, stream
     "raven_tree_gemm": [
-        _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _L, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, ctypes.c_float, _L, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     # fk, skeys, spay, out, hit, N, M, P, stream
     "raven_gather_join": [_P, _P, _P, _P, _P, _L, _L, _I, _P],

@@ -3,133 +3,195 @@
 // Replaces the Pallas kernel `tree_gemm` of src/repro/kernels/tree_gemm.py
 // (pallas_call at line 65), reached from the MLtoDNN tensor program.
 //
-// Per row and tree:  S = x.A,  D = (S <= B),  P = D.C,  match = (P == Dcount),
-// y += match.V, with y starting at `base`.
+// The function: per row and tree, S = x.A, D = (S <= B), P = D.C,
+// match = (P == Dcount), y += match.V, with y starting at `base`. None of it
+// is a matrix product at heart. A is one-hot per internal node, so S is
+// x[feature]; C is in {-1, 0, 1}, so P == Dcount (Dcount being the leaf's
+// count of +1 entries) holds exactly when every left ancestor decided 1 and
+// every right ancestor decided 0. kernels/tree_gemm.py packs the program
+// once, at compile time, into that form and refuses programs for which the
+// two differ: per node its feature and threshold, per live leaf a left and a
+// right bit mask over the nodes and its value (leaves that can never match,
+// the padding, are left out).
 //
-// Bound on an H100: fp32 operations. A is one-hot per internal node, so the
-// function needs S only as a gather, one compare per internal node; the
-// path sums P = D.C (2*I*L per tree) and match.V (2*L) dominate. On the
-// hospital query's path (T = 150, I = L = 32) that is ~2,100 operations per
-// row and tree against ~200 bytes of input per row, so the 67 TFLOP/s fp32
-// SIMT rate, not the 3.35 TB/s memory, sets the floor.
+// Bound on an H100: bytes. The function needs only the path a row takes
+// through each tree (~5 compares on the hospital query's depth-5 trees,
+// T = 150) against ~200 bytes of x per row, so reading x at 3.35 TB/s sets
+// the floor. This design evaluates every node and tests every live leaf
+// (~64 operations per row and tree at I = L = 32), so the SMs' issue rate,
+// not memory, is what holds it above that floor.
 //
-// Design: tensor cores are not used for S = x.A: TF32 would round x to a
-// 10-bit mantissa and flip threshold decisions. S is an fp32 FMA sum over
-// the features; A is one-hot, so the sum is exact (x*1 plus exact zeros)
-// whatever the order. On the TPU the trees are the sequential grid axis with
-// the output block revisited; here a block owns ROWS rows and loops over the
-// trees, keeping each row's accumulator in a register. Per tree, the block
-// stages the tree's (B, C, Dcount, V) in shared memory, where every thread
-// of a warp reads the same word (broadcast). x and A are staged FC features
-// at a time (x feature-major, xs[f * ROWS + r]); each row's path sums sit in
-// a private column of shared memory, so a warp's accesses hit 32 distinct
-// banks. When all F features fit (FC == F, as on the hospital path) x is
-// staged once for all trees and each S is decided as soon as it is summed.
-// A wider program restages its chunk of x per tree and keeps each row's
-// partial S between chunks in a private column too, so shared memory does
-// not grow with F and every program of up to 128 internal nodes fits. Columns
-// of A past x's width read x as zero, which is how the padded program's
-// inert feature rows meet an unpadded x. Path sums and decisions are small integers, exact
-// in fp32, and exactly one leaf of a tree matches, so a tree's part is one
-// leaf value, exactly. Only the sum over trees rounds: the kernel carries it
-// in fp64 (150 adds a row, nothing beside the fp32 work) and rounds it once
-// before adding `base`, as the plain version adds `base` after its own fp32
-// sum; the two then differ by the plain version's rounding alone (atol 1e-5).
+// Design: one thread per row, ROWS rows a block, looping over the trees (the
+// TPU's sequential grid axis) with the row's sum in a register. The block
+// stages its rows of x once, coalesced, into shared memory with the row
+// index fastest (xs[f * XS + r], XS = ROWS + 1 so that both the staging
+// stores and a warp's gather of one feature hit 32 banks); a node's decision
+// is then one shared load and one compare, setting bit i of W decision words
+// held in registers (W templated, one word on the hospital path). A leaf's
+// test is one LOP3 per word, ((dec ^ left) & (left | right)) == 0. The packed
+// trees are staged in chunks of CHUNK trees through shared memory, where
+// every thread of a warp reads the same word (broadcast), so shared memory
+// per block stays small and SMs hold several blocks. An x too wide to stage
+// is read per node through L1 instead. Nothing is rounded but the sum over
+// trees: decisions and masks are exact, a real tree matches one leaf, and
+// its value is added exactly; the kernel carries the sum over trees in
+// fp64 and rounds it once before adding `base`, as the plain version adds
+// `base` after its own fp32 sum, so the two differ by the plain version's
+// rounding alone (atol 1e-5).
+//
+// Non-finite inputs keep the GEMM form's semantics, where 0 * inf = NaN
+// poisons S: with nf the row's count of non-finite entries over all of x's
+// columns, S = x[f] when nf == 0, or when nf == 1 and x[f] is that entry,
+// else NaN (decision 0); a zero column of A, and a feature past x's width,
+// has S = 0 when nf == 0, else NaN. A staged row is rewritten so once; x
+// read through L1 applies the rule per node.
+#include <cstdint>
+
 #include "common.cuh"
 
-constexpr int ROWS = 64;
+constexpr int ROWS = 256;
+constexpr int XS = ROWS + 1;
+constexpr int SMEM_MAX = 232448;
 
-__global__ void tree_gemm_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ A,
-                                 const float* __restrict__ B,
-                                 const float* __restrict__ C,
-                                 const float* __restrict__ D,
-                                 const float* __restrict__ V,
-                                 float* __restrict__ out, float base, long long N,
-                                 int Fx, int T, int F, int I, int L, int FC) {
-  extern __shared__ float smem[];
-  float* xs = smem;            // FC * ROWS, one chunk of x, feature-major
-  float* ps = xs + FC * ROWS;  // L * ROWS, path sums of each row
-  float* As = ps + L * ROWS;   // FC * I, the chunk's rows of A
-  float* Bs = As + FC * I;     // I
-  float* Cs = Bs + I;          // I * L
-  float* Ds = Cs + I * L;      // L
-  float* Vs = Ds + L;          // L
-  float* ss = Vs + L;          // I * ROWS, S so far: only when F > FC
+__device__ __forceinline__ float poison(float v, int nf) {
+  return (nf == 0 || (nf == 1 && !isfinite(v))) ? v : __int_as_float(0x7fc00000);
+}
+
+// nodes: (T, I) of (feature, threshold bits); leaves: (T, L, W + 1) of
+// (left, right) mask words, then (value bits, column); counts: (T) of
+// (nodes to evaluate, live leaves).
+template <int W, bool STAGE_X>
+__global__ void __launch_bounds__(ROWS) tree_gemm_kernel(
+    const float* __restrict__ x, const int2* __restrict__ nodes,
+    const uint2* __restrict__ leaves, const int2* __restrict__ counts,
+    float* __restrict__ out, float base, long long N, int Fx, int T, int I, int L,
+    int CHUNK) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* ns = reinterpret_cast<int2*>(smem);             // CHUNK * I
+  uint2* ls = reinterpret_cast<uint2*>(ns + CHUNK * I);  // CHUNK * L * (W + 1)
+  int2* cs = reinterpret_cast<int2*>(ls + CHUNK * L * (W + 1));  // CHUNK
+  float* xs = reinterpret_cast<float*>(cs + CHUNK);     // (Fx + 1) * XS
 
   const int r = threadIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
-  const long long rows = (N - row0 < ROWS) ? (N - row0) : ROWS;
-  const int chunks = (F > FC) ? (F + FC - 1) / FC : 1;
+  const int rows = static_cast<int>(N - row0 < ROWS ? N - row0 : ROWS);
+  const float* xrow = x + (row0 + (r < rows ? r : rows - 1)) * Fx;
+
+  int nf = 0;  // non-finite entries of this row
+  if (STAGE_X) {
+    const float* xb = x + row0 * Fx;
+    const int n = rows * Fx;
+    for (int k = r; k < ROWS * Fx; k += ROWS) {
+      const int rr = k / Fx;
+      xs[(k - rr * Fx) * XS + rr] = k < n ? xb[k] : 0.0f;
+    }
+    __syncthreads();
+    for (int f = 0; f < Fx; ++f) nf += !isfinite(xs[f * XS + r]);
+    if (nf) {
+      for (int f = 0; f < Fx; ++f) xs[f * XS + r] = poison(xs[f * XS + r], nf);
+    }
+    xs[Fx * XS + r] = poison(0.0f, nf);  // zero columns and features past Fx
+    // each thread reads back only its own row r: no barrier needed here
+  } else {
+    for (int f = 0; f < Fx; ++f) nf += !isfinite(__ldg(xrow + f));
+  }
 
   double acc = 0.0;
-  for (int t = 0; t < T; ++t) {
-    __syncthreads();  // the previous tree's parameters are no longer read
-    for (int k = r; k < I; k += ROWS) Bs[k] = B[static_cast<long long>(t) * I + k];
-    const long long tIL = static_cast<long long>(t) * I * L;
-    for (int k = r; k < I * L; k += ROWS) Cs[k] = C[tIL + k];
-    for (int k = r; k < L; k += ROWS) {
-      Ds[k] = D[static_cast<long long>(t) * L + k];
-      Vs[k] = V[static_cast<long long>(t) * L + k];
+  for (int t0 = 0; t0 < T; t0 += CHUNK) {
+    const int tc = T - t0 < CHUNK ? T - t0 : CHUNK;
+    __syncthreads();  // the previous chunk is no longer read
+    const int2* ng = nodes + static_cast<long long>(t0) * I;
+    for (int k = r; k < tc * I; k += ROWS) {
+      int2 nd = ng[k];
+      const bool zero = nd.x < 0 || nd.x >= Fx;
+      nd.x = STAGE_X ? (zero ? Fx : nd.x) * XS : (zero ? -1 : nd.x);
+      ns[k] = nd;
     }
-    for (int l = 0; l < L; ++l) ps[l * ROWS + r] = 0.0f;
+    const uint2* lg = leaves + static_cast<long long>(t0) * L * (W + 1);
+    for (int k = r; k < tc * L * (W + 1); k += ROWS) ls[k] = lg[k];
+    for (int k = r; k < tc; k += ROWS) cs[k] = counts[t0 + k];
+    __syncthreads();
 
-    for (int c = 0; c < chunks; ++c) {
-      const int f0 = c * FC;
-      const int fc = (F - f0 < FC) ? (F - f0) : FC;
-      if (c > 0) __syncthreads();  // the previous chunk is no longer read
-      if (chunks > 1 || t == 0) {
-        // x[:, f0 : f0 + fc], coalesced over the block's contiguous rows,
-        // zero past N and past x's own width
-        for (int k = r; k < ROWS * fc; k += ROWS) {
-          const int rr = k / fc;
-          const int f = f0 + (k - rr * fc);
-          xs[(f - f0) * ROWS + rr] =
-              (rr < rows && f < Fx) ? x[(row0 + rr) * Fx + f] : 0.0f;
+    for (int j = 0; j < tc; ++j) {
+      const int2 cnt = cs[j];
+      const int2* nj = ns + j * I;
+      uint32_t dec[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        uint32_t word = 0;
+        const int end = cnt.x - 32 * w < 32 ? cnt.x - 32 * w : 32;
+        for (int b = 0; b < end; ++b) {
+          const int2 nd = nj[32 * w + b];
+          float s;
+          if (STAGE_X) {
+            s = xs[nd.x + r];
+          } else {
+            s = poison(nd.x < 0 ? 0.0f : __ldg(xrow + nd.x), nf);
+          }
+          word |= static_cast<uint32_t>(s <= __int_as_float(nd.y)) << b;
         }
+        dec[w] = word;
       }
-      const long long a0 = (static_cast<long long>(t) * F + f0) * I;
-      for (int k = r; k < fc * I; k += ROWS) As[k] = A[a0 + k];
-      __syncthreads();
-      const bool last = c == chunks - 1;
-      for (int i = 0; i < I; ++i) {
-        float s = (c == 0) ? 0.0f : ss[i * ROWS + r];
-        for (int f = 0; f < fc; ++f) s = fmaf(xs[f * ROWS + r], As[f * I + i], s);
-        if (!last) {
-          ss[i * ROWS + r] = s;
-        } else if (s <= Bs[i]) {
-          for (int l = 0; l < L; ++l) ps[l * ROWS + r] += Cs[i * L + l];
+      const uint2* lj = ls + j * L * (W + 1);
+      float part = 0.0f;
+      for (int l = 0; l < cnt.y; ++l, lj += W + 1) {
+        uint32_t miss = 0;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const uint2 m = lj[w];
+          miss |= (dec[w] ^ m.x) & (m.x | m.y);
         }
+        if (miss == 0) part += __uint_as_float(lj[W].x);
       }
+      acc += static_cast<double>(part);
     }
-    float part = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      if (ps[l * ROWS + r] == Ds[l]) part += Vs[l];
-    }
-    acc += static_cast<double>(part);
   }
   if (r < rows) out[row0 + r] = __fadd_rn(static_cast<float>(acc), base);
 }
 
-extern "C" int raven_tree_gemm(const void* x, const void* A, const void* B,
-                               const void* C, const void* D, const void* V,
-                               void* out, float base, long long N, int Fx, int T,
-                               int F, int I, int L, int FC, void* stream) {
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(FC) * ROWS + static_cast<size_t>(L) * ROWS +
-       static_cast<size_t>(FC) * I + I + static_cast<size_t>(I) * L + 2 * L +
-       (F > FC ? static_cast<size_t>(I) * ROWS : 0));
+template <int W, bool STAGE_X>
+static int launch(const void* x, const void* nodes, const void* leaves,
+                  const void* counts, void* out, float base, long long N, int Fx,
+                  int T, int I, int L, int chunk, void* stream) {
+  static unsigned long long done = 0;  // devices whose smem limit is raised
+  const size_t smem =
+      8 * (static_cast<size_t>(chunk) * I + static_cast<size_t>(chunk) * L * (W + 1) +
+           chunk) +
+      (STAGE_X ? 4 * static_cast<size_t>(Fx + 1) * XS : 0);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tree_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err =
+        raven_smem_limit(tree_gemm_kernel<W, STAGE_X>, SMEM_MAX, &done);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const unsigned blocks = static_cast<unsigned>((N + ROWS - 1) / ROWS);
-  tree_gemm_kernel<<<blocks, ROWS, smem, RAVEN_STREAM(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(A),
-      static_cast<const float*>(B), static_cast<const float*>(C),
-      static_cast<const float*>(D), static_cast<const float*>(V),
-      static_cast<float*>(out), base, N, Fx, T, F, I, L, FC);
+  tree_gemm_kernel<W, STAGE_X><<<blocks, ROWS, smem, RAVEN_STREAM(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int2*>(nodes),
+      static_cast<const uint2*>(leaves), static_cast<const int2*>(counts),
+      static_cast<float*>(out), base, N, Fx, T, I, L, chunk);
   RAVEN_RETURN_LAUNCH_STATUS();
+}
+
+template <int W>
+static int launch_w(bool stage_x, const void* x, const void* nodes, const void* leaves,
+                    const void* counts, void* out, float base, long long N, int Fx,
+                    int T, int I, int L, int chunk, void* stream) {
+  return stage_x
+      ? launch<W, true>(x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream)
+      : launch<W, false>(x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+}
+
+extern "C" int raven_tree_gemm(const void* x, const void* nodes, const void* leaves,
+                               const void* counts, void* out, float base, long long N,
+                               int Fx, int T, int I, int L, int W, int chunk,
+                               int stage_x, void* stream) {
+  const bool s = stage_x != 0;
+  switch (W) {
+    case 1: return launch_w<1>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+    case 2: return launch_w<2>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+    case 3: return launch_w<3>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+    case 4: return launch_w<4>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+    case 5: return launch_w<5>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+    case 6: return launch_w<6>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -78,13 +78,18 @@ def pad_gemm_program(A, B, C, D, V, align: int = 8):
     return A2, B2, C2, D2, V2
 
 
-def tree_gemm_op(x, A, B, C, D, V, *, base: float) -> torch.Tensor:
-    """(N,F) rows → (N,) raw scores; A's F may exceed x's (padded program)."""
+def tree_gemm_op(x, A, B, C, D, V, *, base: float, packed=None) -> torch.Tensor:
+    """(N,F) rows → (N,) raw scores; A's F may exceed x's (padded program).
+    ``packed`` is the program's ``pack_gemm_program`` on x's device, which
+    the CUDA kernel reads (packed on the host per call when None); the plain
+    version reads A…V."""
     x = x.to(torch.float32)
     if _route(x, "tree_gemm"):
-        from repro_torch.kernels.tree_gemm import tree_gemm
+        from repro_torch.kernels.tree_gemm import packed_on, tree_gemm
 
-        return tree_gemm(x.contiguous(), A, B, C, D, V, base)
+        if packed is None:
+            packed = packed_on(A, B, C, D, V, x.device)
+        return tree_gemm(x.contiguous(), A, B, C, D, V, base, packed)
     Fk, F = A.shape[1], x.shape[1]
     xp = torch.nn.functional.pad(x, (0, Fk - F)) if Fk > F else x
     return _ref.tree_gemm_ref(xp, A, B, C, D, V, base)

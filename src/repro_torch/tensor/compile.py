@@ -249,9 +249,11 @@ class TensorProgram(nn.Module):
             return out
         if kind == "gemm":
             from repro_torch.kernels.ops import pad_gemm_program
+            from repro_torch.kernels.tree_gemm import pack_gemm_program
 
-            # padded once here: the reference pads inside its traced closure
-            # (jit runs that once); eager torch would redo it every call
+            # padded and packed once here: the reference pads inside its
+            # traced closure (jit runs that once); eager torch would redo it
+            # every call
             A, B, C, D, V = pad_gemm_program(
                 info.A, info.B, info.C, info.Dcount, info.V, align=GEMM_ALIGN
             )
@@ -260,6 +262,8 @@ class TensorProgram(nn.Module):
                 "C": self._buf(C, f32), "D": self._buf(D, f32),
                 "V": self._buf(V, f32), "base": info.base, "post": info.post,
                 "n_features": info.n_features,
+                "packed": tuple(self._buf(a, torch.int32)
+                                for a in pack_gemm_program(A, B, C, D, V)),
             }
         if kind == "traversal":
             return {
@@ -366,10 +370,12 @@ class TensorProgram(nn.Module):
                         raw = gemm_predict(prog, X)
                     else:
                         from repro_torch.kernels.ops import tree_gemm_op
+                        from repro_torch.kernels.tree_gemm import PackedGemmProgram
 
                         raw = tree_gemm_op(
                             X, prog.A, prog.B, prog.C, prog.Dcount, prog.V,
                             base=prog.base,
+                            packed=PackedGemmProgram(*(b[n] for n in g["packed"])),
                         )
                 else:
                     g = info["traversal"]

@@ -158,12 +158,12 @@ def test_hospital_query_on_the_card_matches_the_cpu(dev):
 
 def test_tree_gemm_kernel_wide_program_in_feature_chunks(dev):
     """A program too wide for one block's shared memory (2,000 features,
-    I = L = 136 columns: the most the GEMM policy picks) runs in feature
-    chunks. Its trees are a real ensemble's, with their features scattered
+    I = L = 136 columns: the most the GEMM policy picks) runs with x read
+    through L1 instead of staged. Its trees are a real ensemble's, with their features scattered
     among 2,000 and inert node columns added, so the result equals the
     narrow program's bit for bit and the plain version's within 1e-5."""
     from repro_torch.data.datasets import make_hospital
-    from repro_torch.kernels.tree_gemm import feature_chunk
+    from repro_torch.kernels.tree_gemm import launch_plan
     from repro_torch.ml import GradientBoostingClassifier
     from repro_torch.tensor.tree2tensor import build_gemm_program
 
@@ -181,13 +181,100 @@ def test_tree_gemm_kernel_wide_program_in_feature_chunks(dev):
     Aw[:, pos, :] = A[:, : X.shape[1], :]
     Xw = rng.normal(size=(X.shape[0], Fw)).astype(np.float32)
     Xw[:, pos] = X
-    assert A.shape[2] == C.shape[2] == 136 and feature_chunk(Fw, 136, 136) < Fw
+    assert A.shape[2] == C.shape[2] == 136 and not launch_plan(Fw, A.shape[0], 136, 136)[0]
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
     wide = ops.tree_gemm_op(t(Xw), t(Aw), t(B), t(C), t(D), t(V), base=p.base)
     small = ops.tree_gemm_op(t(X), *map(t, narrow), base=p.base)
     want = ref.tree_gemm_ref(t(Xw), t(Aw), t(B), t(C), t(D), t(V), p.base)
     assert np.array_equal(_bits(wide), _bits(small))
     assert float((wide - want).abs().max()) <= 1e-5
+
+
+def _hospital_trees(n_estimators, max_depth, seed):
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.ml import GradientBoostingClassifier
+    from repro_torch.tensor.tree2tensor import build_gemm_program
+
+    ds = make_hospital(1024, seed=seed)
+    cols = ds.joined_columns()
+    X = np.stack([cols[c] for c in ds.numeric], 1).astype(np.float32)
+    gb = GradientBoostingClassifier(n_estimators=n_estimators, max_depth=max_depth)
+    return X, build_gemm_program(gb.fit(X, ds.label).ensemble)
+
+
+@pytest.mark.parametrize("align,W,wide", [(8, 1, False), (64, 2, False), (136, 5, False),
+                                          (136, 5, True), (176, 6, False)])
+def test_tree_gemm_kernel_non_finite_rows_and_repeatable(dev, align, W, wide):
+    """Rows with +inf, -inf and NaN, one or two a row, in features the trees
+    test and in ones they do not: the kernel equals the plain version within
+    1e-5 with NaN in the same places (the GEMM form's 0 * inf = NaN poisons
+    a row's other nodes), for W = 1, 2, 5 and 6 decision words, with x staged
+    in shared memory and (wide: 2,000 features) read through L1. A second
+    call repeats the first bit for bit."""
+    from repro_torch.kernels.tree_gemm import decision_words, launch_plan
+
+    X, p = _hospital_trees(20, 5, seed=2)
+    A, B, C, D, V = ops.pad_gemm_program(p.A, p.B, p.C, p.Dcount, p.V, align=align)
+    assert decision_words(A.shape[2]) == W
+    rng = np.random.default_rng(align + wide)
+    used = np.arange(X.shape[1])
+    if wide:
+        Fw = 2000
+        used = rng.choice(Fw, size=X.shape[1], replace=False)
+        Aw = np.zeros((A.shape[0], Fw, A.shape[2]), np.float32)
+        Aw[:, used, :] = A[:, : X.shape[1], :]
+        Xw = rng.normal(size=(X.shape[0], Fw)).astype(np.float32)
+        Xw[:, used] = X
+        A, X = Aw, Xw
+    for r in range(X.shape[0]):
+        if r % 4:
+            pool = used if r % 8 < 4 else np.arange(X.shape[1])
+            cols = rng.choice(pool, size=1 if r % 4 < 3 else 2, replace=False)
+            X[r, cols] = rng.choice([np.inf, -np.inf, np.nan], size=cols.size)
+    assert launch_plan(X.shape[1], A.shape[0], A.shape[2], C.shape[2])[0] == (not wide)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    x, prog = t(X), [t(a) for a in (A, B, C, D, V)]
+    got = ops.tree_gemm_op(x, *prog, base=p.base)
+    again = ops.tree_gemm_op(x, *prog, base=p.base)
+    xp = torch.nn.functional.pad(x, (0, A.shape[1] - x.shape[1]))
+    want = ref.tree_gemm_ref(xp, *prog, p.base)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-5
+    assert np.array_equal(_bits(got), _bits(again))
+
+
+def test_compiled_plan_reaches_the_kernel_with_its_packed_program(dev, monkeypatch):
+    """``compile_plan`` → ``run`` on the card: the GEMM step hands the kernel
+    the program packed at compile time (packing per call raises here), one
+    launch a run."""
+    import repro_torch.kernels.tree_gemm as tg
+    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.ml import GradientBoostingClassifier, fit_pipeline
+    from repro_torch.relational.engine import compile_plan
+    from repro_torch.sql.parser import parse_prediction_query
+
+    train, infer = make_hospital(1024, seed=0), make_hospital(3000, seed=1)
+    pipe = fit_pipeline(
+        train.joined_columns(), train.label, train.numeric, train.categorical,
+        GradientBoostingClassifier(n_estimators=10, max_depth=5),
+        categories=train.categories(),
+    )
+    sql = "SELECT COUNT(*), AVG(score) FROM PREDICT(model='m', data=patients) AS p"
+    q = parse_prediction_query(sql, {"m": pipe}, infer.tables)
+    plan, _ = RavenOptimizer(options=OptimizerOptions(transform="dnn")).optimize(q)
+    cp = compile_plan(plan)
+    seen = []
+    real = tg.tree_gemm
+    monkeypatch.setattr(tg, "tree_gemm", lambda *a: seen.append(a[7]) or real(*a))
+    monkeypatch.setattr(tg, "packed_on", lambda *a: pytest.fail("packed per call"))
+    before = LAUNCHES["tree_gemm"]
+    out = cp.run(infer.tables).table.to_numpy()
+    assert LAUNCHES["tree_gemm"] == before + 1
+    assert len(seen) == 1 and isinstance(seen[0], tg.PackedGemmProgram)
+    assert all(a.is_cuda and a.dtype == torch.int32 for a in seen[0])
+    assert out["count_rows"].tolist() == [3000]
 
 
 # ---------------------------------------------------------------------------

@@ -309,7 +309,7 @@ def test_wrappers_refuse_cpu_tensors_and_ops_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         featurize(f, i[:, None], f[0], f[0], i[:0], i[:0])
     with pytest.raises(ValueError, match="CUDA"):
-        tree_gemm(f, f[None], f[:1], f[None], f[:1], f[:1], 0.0)
+        tree_gemm(f, f[None], f[:1], f[None], f[:1], f[:1], 0.0, None)
     with pytest.raises(ValueError, match="CUDA"):
         gather_join(i, i, f)
     with pytest.raises(ValueError, match="CUDA"):

@@ -161,22 +161,29 @@ def test_auto_program_picks_its_strategy_on_each_call(
     assert len(calls) == gemm_calls
 
 
-@pytest.mark.parametrize("F,I,L", [(56, 32, 32), (4096, 32, 32), (59, 136, 136),
-                                   (5000, 136, 136)])
-def test_tree_gemm_feature_chunk_fits_every_gemm_program(F, I, L):
-    """The kernel stages x and A ``feature_chunk`` features at a time, so
-    every program the GEMM policy picks (up to 128 internal nodes, padded
-    to 136 columns) fits one block's shared memory, however wide F is."""
-    from repro_torch.kernels.tree_gemm import SMEM_LIMIT, feature_chunk, smem_bytes
+@pytest.mark.parametrize("F,I,L,staged", [(56, 32, 32, True), (4096, 32, 32, False),
+                                          (59, 136, 136, True), (5000, 136, 136, False),
+                                          (59, 176, 176, True)])
+def test_tree_gemm_feature_chunk_fits_every_gemm_program(F, I, L, staged):
+    """Every program the GEMM policy picks (up to 128 internal nodes, padded
+    to 136 columns) fits one block's shared memory, however wide x is: the
+    kernel stages x when its columns fit ``X_SMEM_LIMIT`` and reads it
+    through L1 otherwise, and stages the packed trees in chunks of at least
+    one tree, ``CHUNK_SMEM`` bytes where a tree is smaller. Programs of up
+    to 192 internal nodes (six decision words) run, 176 among them, as an
+    explicit ``tensor_strategy='gemm'`` may ask for."""
+    from repro_torch.kernels.tree_gemm import (
+        CHUNK_SMEM, SMEM_LIMIT, X_SMEM_LIMIT, XS, decision_words, launch_plan,
+    )
 
-    fc = feature_chunk(F, I, L)
-    if smem_bytes(F, I, L) <= SMEM_LIMIT:
-        assert fc == F  # x is staged once for all trees
-    else:
-        assert 8 <= fc < F and fc % 8 == 0
-        assert smem_bytes(fc, I, L, chunked=True) <= SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        feature_chunk(F, 1024, 1024)
+    stage_x, chunk = launch_plan(F, 150, I, L)
+    tree = 8 * (I + L * (decision_words(I) + 1) + 1)
+    x_bytes = 4 * (F + 1) * XS
+    assert stage_x == staged == (x_bytes <= X_SMEM_LIMIT)
+    assert 1 <= chunk <= 150 and chunk * tree <= max(CHUNK_SMEM, tree)
+    assert chunk * tree + (x_bytes if stage_x else 0) <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="decision words"):
+        launch_plan(F, 150, 1024, 1024)
 
 
 def test_compile_defaults_to_the_card(pipelines, monkeypatch):
