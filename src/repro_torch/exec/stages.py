@@ -180,10 +180,10 @@ def pure_step(plan, inner: Optional[Callable[[dict], State]]) -> Callable[[dict]
             if seg is None:
                 # global fold: a single output row; the upstream filter is
                 # already folded in as the validity weight
-                sid0 = torch.zeros_like(valid, dtype=torch.int32)
                 if _kern:
-                    out = emit_aggregate_kernel(_plan.aggs, cols, w, sid0, 1)
+                    out = emit_aggregate_kernel(_plan.aggs, cols, w, None, 1)
                     return out, one, None
+                sid0 = torch.zeros_like(valid, dtype=torch.int32)
                 out = {}
                 nvalid = torch.sum(w)
                 for name, op, col in _plan.aggs:

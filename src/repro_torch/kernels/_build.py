@@ -14,6 +14,7 @@ package on machines with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,10 +40,13 @@ SIGNATURES: dict[str, list] = {
     "raven_tree_gemm": [
         _P, _P, _P, _P, _P, ctypes.c_float, _L, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
-    # fk, skeys, spay, out, hit, N, M, P, stream
-    "raven_gather_join": [_P, _P, _P, _P, _P, _L, _L, _I, _P],
-    # vals, w, sid, partials, counts, sums, mins, maxs, N, C, S, blocks, stream
-    "raven_segment_agg": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # fk, skeys, spay, records, lo, span, width, out, hit, N, M, P, blocks, stream
+    "raven_gather_join": [_P, _P, _P, _P, _L, _L, _I, _P, _P, _L, _L, _I, _I, _P],
+    # cols, strides, C, w, sid, partials, counts, sums, mins, maxs, N, S,
+    # registers, blocks, chunk, groups, group_segments, stage, smem, slot, stream
+    "raven_segment_agg": [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P,
+    ],
     # q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal, stream
     "raven_flash_attention_f32": [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
@@ -167,6 +171,17 @@ def require(t, name: str, dtype: torch.dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: {t.dim()}-D, expected {ndim}-D")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` names."""
+    index = torch.device(device).index
+    return _sms(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device) -> int:

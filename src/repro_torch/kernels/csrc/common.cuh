@@ -30,6 +30,10 @@ static inline cudaError_t raven_smem_limit(F* kernel, int bytes, unsigned long l
   const unsigned long long bit = 1ull << (dev & 63);
   if (*done & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done |= bit;
+  if (err == cudaSuccess) {
+    *done |= bit;
+  } else {
+    cudaGetLastError();  // reported here: a later launch must not report it again
+  }
   return err;
 }

@@ -45,6 +45,14 @@
 // else NaN (decision 0); a zero column of A, and a feature past x's width,
 // has S = 0 when nf == 0, else NaN. A staged row is rewritten so once; x
 // read through L1 applies the rule per node.
+//
+// Past W_MAX = 6 decision words (more than 192 internal nodes, which only an
+// explicit gemm strategy asks for) the wide kernel holds each row's words in
+// shared memory, one column of ROWS words per decision word (each thread
+// reads its own row: no bank conflicts), and reads the packed records from
+// global memory through L1, every thread of a warp the same record, since
+// one tree may not fit shared memory (~278 KB at 1,024 nodes). It tests
+// nodes, leaves and sums in the same order as the templated kernel.
 #include <cstdint>
 
 #include "common.cuh"
@@ -55,6 +63,34 @@ constexpr int SMEM_MAX = 232448;
 
 __device__ __forceinline__ float poison(float v, int nf) {
   return (nf == 0 || (nf == 1 && !isfinite(v))) ? v : __int_as_float(0x7fc00000);
+}
+
+// Stages x and counts the row's non-finite entries, rewriting the staged
+// row as the GEMM form would see it; returns that count.
+template <bool STAGE_X>
+__device__ __forceinline__ int stage_row(const float* __restrict__ x, float* xs,
+                                         const float* xrow, long long row0, int rows,
+                                         int Fx) {
+  const int r = threadIdx.x;
+  int nf = 0;
+  if (STAGE_X) {
+    const float* xb = x + row0 * Fx;
+    const int n = rows * Fx;
+    for (int k = r; k < ROWS * Fx; k += ROWS) {
+      const int rr = k / Fx;
+      xs[(k - rr * Fx) * XS + rr] = k < n ? xb[k] : 0.0f;
+    }
+    __syncthreads();
+    for (int f = 0; f < Fx; ++f) nf += !isfinite(xs[f * XS + r]);
+    if (nf) {
+      for (int f = 0; f < Fx; ++f) xs[f * XS + r] = poison(xs[f * XS + r], nf);
+    }
+    xs[Fx * XS + r] = poison(0.0f, nf);  // zero columns and features past Fx
+    // each thread reads back only its own row r: no barrier needed here
+  } else {
+    for (int f = 0; f < Fx; ++f) nf += !isfinite(__ldg(xrow + f));
+  }
+  return nf;
 }
 
 // nodes: (T, I) of (feature, threshold bits); leaves: (T, L, W + 1) of
@@ -77,24 +113,7 @@ __global__ void __launch_bounds__(ROWS) tree_gemm_kernel(
   const int rows = static_cast<int>(N - row0 < ROWS ? N - row0 : ROWS);
   const float* xrow = x + (row0 + (r < rows ? r : rows - 1)) * Fx;
 
-  int nf = 0;  // non-finite entries of this row
-  if (STAGE_X) {
-    const float* xb = x + row0 * Fx;
-    const int n = rows * Fx;
-    for (int k = r; k < ROWS * Fx; k += ROWS) {
-      const int rr = k / Fx;
-      xs[(k - rr * Fx) * XS + rr] = k < n ? xb[k] : 0.0f;
-    }
-    __syncthreads();
-    for (int f = 0; f < Fx; ++f) nf += !isfinite(xs[f * XS + r]);
-    if (nf) {
-      for (int f = 0; f < Fx; ++f) xs[f * XS + r] = poison(xs[f * XS + r], nf);
-    }
-    xs[Fx * XS + r] = poison(0.0f, nf);  // zero columns and features past Fx
-    // each thread reads back only its own row r: no barrier needed here
-  } else {
-    for (int f = 0; f < Fx; ++f) nf += !isfinite(__ldg(xrow + f));
-  }
+  const int nf = stage_row<STAGE_X>(x, xs, xrow, row0, rows, Fx);
 
   double acc = 0.0;
   for (int t0 = 0; t0 < T; t0 += CHUNK) {
@@ -149,6 +168,72 @@ __global__ void __launch_bounds__(ROWS) tree_gemm_kernel(
   if (r < rows) out[row0 + r] = __fadd_rn(static_cast<float>(acc), base);
 }
 
+template <bool STAGE_X>
+__global__ void __launch_bounds__(ROWS) tree_gemm_wide_kernel(
+    const float* __restrict__ x, const int2* __restrict__ nodes,
+    const uint2* __restrict__ leaves, const int2* __restrict__ counts,
+    float* __restrict__ out, float base, long long N, int Fx, int T, int I, int L,
+    int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* dec = reinterpret_cast<uint32_t*>(smem);   // W * ROWS
+  float* xs = reinterpret_cast<float*>(dec + W * ROWS);  // (Fx + 1) * XS
+
+  const int r = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
+  const int rows = static_cast<int>(N - row0 < ROWS ? N - row0 : ROWS);
+  const float* xrow = x + (row0 + (r < rows ? r : rows - 1)) * Fx;
+  const int nf = stage_row<STAGE_X>(x, xs, xrow, row0, rows, Fx);
+
+  double acc = 0.0;
+  for (int t = 0; t < T; ++t) {
+    const int2 cnt = __ldg(counts + t);
+    const int2* nt = nodes + static_cast<long long>(t) * I;
+    for (int w = 0; w < W; ++w) {
+      uint32_t word = 0;
+      const int end = cnt.x - 32 * w < 32 ? cnt.x - 32 * w : 32;
+      for (int b = 0; b < end; ++b) {
+        const int2 nd = __ldg(nt + 32 * w + b);
+        const bool zero = nd.x < 0 || nd.x >= Fx;
+        const float s = STAGE_X ? xs[(zero ? Fx : nd.x) * XS + r]
+                                : poison(zero ? 0.0f : __ldg(xrow + nd.x), nf);
+        word |= static_cast<uint32_t>(s <= __int_as_float(nd.y)) << b;
+      }
+      dec[w * ROWS + r] = word;
+    }
+    const uint2* lt = leaves + static_cast<long long>(t) * L * (W + 1);
+    float part = 0.0f;
+    for (int l = 0; l < cnt.y; ++l, lt += W + 1) {
+      uint32_t miss = 0;
+      for (int w = 0; w < W && miss == 0; ++w) {
+        const uint2 m = __ldg(lt + w);
+        miss |= (dec[w * ROWS + r] ^ m.x) & (m.x | m.y);
+      }
+      if (miss == 0) part += __uint_as_float(__ldg(lt + W).x);
+    }
+    acc += static_cast<double>(part);
+  }
+  if (r < rows) out[row0 + r] = __fadd_rn(static_cast<float>(acc), base);
+}
+
+template <bool STAGE_X>
+static int launch_wide(const void* x, const void* nodes, const void* leaves,
+                       const void* counts, void* out, float base, long long N, int Fx,
+                       int T, int I, int L, int W, void* stream) {
+  static unsigned long long done = 0;  // devices whose smem limit is raised
+  const size_t smem = 4 * static_cast<size_t>(W) * ROWS +
+                      (STAGE_X ? 4 * static_cast<size_t>(Fx + 1) * XS : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raven_smem_limit(tree_gemm_wide_kernel<STAGE_X>, SMEM_MAX, &done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const unsigned blocks = static_cast<unsigned>((N + ROWS - 1) / ROWS);
+  tree_gemm_wide_kernel<STAGE_X><<<blocks, ROWS, smem, RAVEN_STREAM(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int2*>(nodes),
+      static_cast<const uint2*>(leaves), static_cast<const int2*>(counts),
+      static_cast<float*>(out), base, N, Fx, T, I, L, W);
+  RAVEN_RETURN_LAUNCH_STATUS();
+}
+
 template <int W, bool STAGE_X>
 static int launch(const void* x, const void* nodes, const void* leaves,
                   const void* counts, void* out, float base, long long N, int Fx,
@@ -185,6 +270,10 @@ extern "C" int raven_tree_gemm(const void* x, const void* nodes, const void* lea
                                int Fx, int T, int I, int L, int W, int chunk,
                                int stage_x, void* stream) {
   const bool s = stage_x != 0;
+  if (chunk == 0) {
+    return s ? launch_wide<true>(x, nodes, leaves, counts, out, base, N, Fx, T, I, L, W, stream)
+             : launch_wide<false>(x, nodes, leaves, counts, out, base, N, Fx, T, I, L, W, stream);
+  }
   switch (W) {
     case 1: return launch_w<1>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);
     case 2: return launch_w<2>(s, x, nodes, leaves, counts, out, base, N, Fx, T, I, L, chunk, stream);

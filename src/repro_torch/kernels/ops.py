@@ -121,30 +121,40 @@ def featurize_op(num, cat, offset, scale, cat_values, cat_segments, val_col=None
 # ---------------------------------------------------------------------------
 
 
-def gather_join_op(fk, skeys, spay):
+def gather_join_op(fk, skeys, spay, *, records=None, lo: int = 0):
     """Dim-table equi-join gather. fk:(N,) int32; skeys:(M,) sorted *unique*
-    int32 dim keys; spay:(M,P) f32 payload aligned to skeys. Returns
-    ``(out, hit)``: out:(N,P) f32 (zero on miss), hit:(N,) bool."""
+    int32 dim keys; spay:(M,P) f32 payload aligned to skeys. ``records``
+    and ``lo``, where the Join step built them from the dimsort entry's
+    direct-address index, are the kernel's dense route (the plain version
+    searches). Returns ``(out, hit)``: out:(N,P) f32 (zero on miss),
+    hit:(N,) bool."""
     if _route(fk, "gather_join"):
         from repro_torch.kernels.relational import gather_join
 
-        return gather_join(fk.contiguous(), skeys.contiguous(), spay.contiguous())
+        return gather_join(fk.contiguous(), skeys.contiguous(), spay.contiguous(),
+                           records=records, lo=lo)
     return _ref.gather_join_ref(fk, skeys, spay)
 
 
 def segment_agg_op(vals, w, sid, *, num_segments: int):
-    """Masked segmented aggregate. vals:(N,C) f32; w:(N,) f32 validity
-    weights (the fused filter mask); sid:(N,) int32 in [0, num_segments).
-    Returns ``(counts, sums, mins, maxs)`` — counts:(S,), the rest (S,C);
-    mins/maxs are +inf/-inf where a segment has no valid rows (callers
-    replace empties via ``counts > 0``)."""
-    if _route(vals, "segment_agg"):
+    """Masked segmented aggregate. vals: the C value columns, an (N,C) f32
+    tensor or a sequence of (N,) f32 tensors (the kernel reads them in
+    place; only the plain version stacks them); w:(N,) f32 validity weights
+    (the fused filter mask); sid:(N,) int32 in [0, num_segments), or None
+    for a single segment. Returns ``(counts, sums, mins, maxs)`` — counts:(S,),
+    the rest (S,C); mins/maxs are +inf/-inf where a segment has no valid
+    rows (callers replace empties via ``counts > 0``)."""
+    if _route(w, "segment_agg"):
         from repro_torch.kernels.relational import segment_agg
 
-        return segment_agg(
-            vals.contiguous(), w.contiguous(), sid.contiguous(),
-            num_segments=num_segments,
-        )
+        return segment_agg(vals, w.contiguous(),
+                           None if sid is None else sid.contiguous(),
+                           num_segments=num_segments)
+    if not torch.is_tensor(vals):
+        vals = (torch.stack(list(vals), dim=1) if len(vals)
+                else w.new_zeros((w.shape[0], 0), dtype=torch.float32))
+    if sid is None:
+        sid = torch.zeros(w.shape, dtype=torch.int32, device=w.device)
     return _ref.segment_agg_ref(vals, w, sid, num_segments=num_segments)
 
 

@@ -21,7 +21,7 @@ from repro_torch.kernels import _build
 
 ROWS = 256  # rows per block: the kernel's ROWS
 XS = ROWS + 1  # column stride of x in shared memory (the kernel's XS)
-W_MAX = 6  # decision words per tree the kernel is built for: I <= 192
+W_MAX = 6  # decision words held in registers (I <= 192); more take the wide path
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 X_SMEM_LIMIT = 96 * 1024  # most bytes of staged x: two blocks still fit an SM
 CHUNK_SMEM = 16 * 1024  # bytes of packed trees staged per pass
@@ -125,20 +125,24 @@ def launch_plan(Fx: int, T: int, I: int, L: int) -> tuple[bool, int]:
     """(x staged in shared memory, trees staged per pass) for x of width
     ``Fx`` and a packed program of ``T`` trees, ``I`` nodes and ``L``
     leaves. x is staged when its ``Fx`` columns and a zero column fit
-    ``X_SMEM_LIMIT``; a wider x is read per node through L1. Raises when
-    the decision bits need more than ``W_MAX`` words or one tree does not
-    fit a block's shared memory."""
+    ``X_SMEM_LIMIT``; a wider x is read per node through L1.
+
+    Trees staged per pass 0 names the wide path, taken past ``W_MAX``
+    decision words or where one tree does not fit shared memory beside x:
+    each row's decision words sit in shared memory and the packed records
+    are read through L1. Raises only where those words alone exceed a
+    block's shared memory (over 7,264 internal nodes a tree)."""
     W = decision_words(I)
-    if W > W_MAX:
-        raise ValueError(f"tree_gemm: {I} internal nodes need {W} decision words; "
-                         f"the kernel is built for at most {W_MAX}")
     tree_bytes = 8 * (I + L * (W + 1) + 1)
     x_bytes = 4 * (Fx + 1) * XS
     stage_x = x_bytes <= X_SMEM_LIMIT
-    if tree_bytes + (x_bytes if stage_x else 0) > SMEM_LIMIT:
-        raise ValueError(f"tree_gemm: one tree of I={I} nodes and L={L} leaves needs "
-                         f"{tree_bytes} bytes of shared memory per block")
-    return stage_x, max(1, min(T, CHUNK_SMEM // tree_bytes))
+    if W <= W_MAX and tree_bytes + (x_bytes if stage_x else 0) <= SMEM_LIMIT:
+        return stage_x, max(1, min(T, CHUNK_SMEM // tree_bytes))
+    words_bytes = 4 * W * ROWS
+    if words_bytes > SMEM_LIMIT:
+        raise ValueError(f"tree_gemm: {I} internal nodes need {W} decision words a "
+                         f"row, {words_bytes} bytes of shared memory per block")
+    return stage_x and words_bytes + x_bytes <= SMEM_LIMIT, 0
 
 
 def packed_on(A, B, C, D, V, device) -> PackedGemmProgram:

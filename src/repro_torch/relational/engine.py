@@ -169,22 +169,50 @@ def clear_plan_cache() -> None:
 # the keys the upload kept: a request never copies device memory back to the
 # host to learn the order. Entries carry a zero-length "unique" marker when
 # the keys are duplicate-free: that is what lets the Join step use the
-# gather-join kernel.
+# gather-join kernel. On a card, unique keys whose range is small gain the
+# kernel's direct-address index (the plain version searches), and the Join
+# step keeps in the entry ("payloads") each sorted payload it builds and the
+# kernel's records it makes from the index, so all are built once.
+
+DENSE_SLOTS_PER_KEY = 4  # an index may hold up to 4 slots for every key...
+DENSE_MAX_SLOTS = 1 << 24  # ...and 2^24 in all: 64 MB, and 256 MB of records at P <= 3
 
 
-def dimsort_entry(keys: np.ndarray, device) -> dict[str, torch.Tensor]:
+def dense_index(sk: np.ndarray) -> Optional[tuple[np.ndarray, int]]:
+    """The gather-join kernel's direct-address index of sorted unique keys
+    ``sk``: ``(index, lo)`` with ``index[k - lo]`` the position of key ``k``
+    in ``sk`` or -1, int32; None where ``sk`` is empty or the keys span more
+    than ``DENSE_SLOTS_PER_KEY`` slots a key or ``DENSE_MAX_SLOTS``. Offsets
+    are taken in int64, so no key wraps."""
+    if sk.size == 0:
+        return None
+    lo = int(sk[0])
+    span = int(sk[-1]) - lo + 1
+    if span > DENSE_SLOTS_PER_KEY * sk.size or span > DENSE_MAX_SLOTS:
+        return None
+    index = np.full(span, -1, np.int32)
+    index[sk.astype(np.int64) - lo] = np.arange(sk.size, dtype=np.int32)
+    return index, lo
+
+
+def dimsort_entry(keys: np.ndarray, device) -> dict[str, Any]:
     """Baked sort data for one host dim-key column, on ``device``: the keys
-    sorted, the stable argsort permutation (int32), and the uniqueness
-    marker."""
+    sorted, the stable argsort permutation (int32), the uniqueness marker
+    and, on a card, the kernel's :func:`dense_index` ("index", and its first
+    key "lo") where there is one."""
     nk = np.ascontiguousarray(keys)
     order = np.argsort(nk, kind="stable")
     sk = nk[order]
-    entry = {
+    entry: dict[str, Any] = {
         "keys": torch.from_numpy(sk).to(device),
         "order": torch.from_numpy(order.astype(np.int32)).to(device),
     }
     if sk.size == 0 or not np.any(sk[1:] == sk[:-1]):
         entry["unique"] = torch.zeros((0,), dtype=torch.int32, device=device)
+        dense = dense_index(sk) if torch.device(device).type == "cuda" else None
+        if dense is not None:
+            entry["index"] = torch.from_numpy(dense[0]).to(device)
+            entry["lo"] = dense[1]
     return entry
 
 
@@ -198,9 +226,9 @@ class Database(dict):
         super().__init__(tables)
         self.device = device
         self._host = host  # (table, column) -> host copy of an integer column
-        self._sorts: dict[tuple[str, str], dict[str, torch.Tensor]] = {}
+        self._sorts: dict[tuple[str, str], dict[str, Any]] = {}
 
-    def dimsort(self, table: str, column: str) -> dict[str, torch.Tensor]:
+    def dimsort(self, table: str, column: str) -> dict[str, Any]:
         key = (table, column)
         if key not in self._sorts:
             host = self._host.get(key)
@@ -282,7 +310,7 @@ class CompiledPlan:
             env[ROW_SEG_KEY] = to_device(seg_ids, device).to(torch.int32)
             env[SEG_SLOTS_KEY] = torch.arange(ns, dtype=torch.int32, device=device)
             env[SEG_COUNT_KEY] = torch.tensor(count, dtype=torch.int32, device=device)
-        ds: dict[str, dict[str, torch.Tensor]] = {}
+        ds: dict[str, dict[str, Any]] = {}
         for p in walk_plan(self.graph.plan):
             if isinstance(p, Join) and p.dim_key in db.get(p.dim_table, ()):
                 ds[p.dim_table] = db.dimsort(p.dim_table, p.dim_key)

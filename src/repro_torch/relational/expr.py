@@ -114,6 +114,21 @@ _BIN = {
 }
 
 
+_INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
+
+
+def _scalar(v, device) -> torch.Tensor:
+    """A constant or bound value as a tensor, typed as ``jnp.asarray`` types
+    it with 64-bit types off: a Python ``int`` is int32, and one outside
+    int32's range raises ``OverflowError`` instead of wrapping (a 0-d int64
+    tensor would keep an int32 column's dtype and wrap)."""
+    if isinstance(v, int) and not isinstance(v, bool):
+        if not _INT32_MIN <= v <= _INT32_MAX:
+            raise OverflowError(f"Python int {v} too large to convert to int32")
+        return torch.tensor(v, dtype=torch.int32, device=device)
+    return torch.as_tensor(v, device=device)
+
+
 def eval_expr(
     expr: Expr,
     env: dict[str, torch.Tensor],
@@ -121,10 +136,10 @@ def eval_expr(
 ) -> torch.Tensor:
     """Iterative post-order evaluation (no recursion limit).
 
-    Constants become 0-d tensors on the columns' device; like JAX's weakly
-    typed scalars, a 0-d operand does not widen a column's dtype (an int32
-    column compared with ``1`` stays an int32 comparison, ``x > 0.0`` on an
-    f32 column stays f32)."""
+    Constants become 0-d tensors on the columns' device (see
+    :func:`_scalar`); like JAX's weakly typed scalars, a 0-d operand does
+    not widen a column's dtype (an int32 column compared with ``1`` stays
+    an int32 comparison, ``x > 0.0`` on an f32 column stays f32)."""
     device = next(iter(env.values())).device if env else None
     out: dict[int, torch.Tensor] = {}
     stack: list[tuple[Expr, bool]] = [(expr, False)]
@@ -143,9 +158,9 @@ def eval_expr(
                     f"parameter :{node.name} is unbound — pass it via "
                     f"params={{'{node.name}': value}}"
                 )
-            out[nid] = torch.as_tensor(params[node.name], device=device)
+            out[nid] = _scalar(params[node.name], device)
         elif isinstance(node, Const):
-            out[nid] = torch.as_tensor(node.value, device=device)
+            out[nid] = _scalar(node.value, device)
         elif visited:
             if isinstance(node, Bin):
                 out[nid] = _BIN[node.op](out[id(node.a)], out[id(node.b)])

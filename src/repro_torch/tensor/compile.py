@@ -509,37 +509,44 @@ def join_kernel_qualifies(plan, dim, fk, ds) -> bool:
 def emit_join_kernel(plan, dim, fk, ds):
     """Run the gather-join op for a qualifying Join. Returns
     ``(brought, hit)``: the gathered dim columns (zero where the key
-    missed) and the per-row hit mask to AND into row validity."""
+    missed) and the per-row hit mask to AND into row validity. The sorted
+    payload, and where the dimsort entry has a direct-address index the
+    kernel's dense records, are built on the first call for these payload
+    columns and kept in the entry."""
     from repro_torch.kernels.ops import gather_join_op
+    from repro_torch.kernels.relational import dense_records
 
-    order = ds["order"]
-    spay = torch.stack(
-        [dim[c][order] for c in plan.dim_columns], dim=1
-    ).to(torch.float32)
+    payloads = ds.setdefault("payloads", {})
+    cols = tuple(plan.dim_columns)
+    if cols not in payloads:
+        order = ds["order"]
+        spay = torch.stack([dim[c][order] for c in cols], dim=1).to(torch.float32)
+        records = dense_records(ds["index"], spay) if "index" in ds else None
+        payloads[cols] = (spay, records)
+    spay, records = payloads[cols]
+    dense = {} if records is None else {"records": records, "lo": ds["lo"]}
     gathered, hit = gather_join_op(
-        fk.to(torch.int32), ds["keys"].to(torch.int32), spay
+        fk.to(torch.int32), ds["keys"].to(torch.int32), spay, **dense
     )
-    brought = {c: gathered[:, j] for j, c in enumerate(plan.dim_columns)}
+    brought = {c: gathered[:, j] for j, c in enumerate(cols)}
     return brought, hit
 
 
 def emit_aggregate_kernel(aggs, cols, w, sid, num_segments):
     """Run one masked segmented-aggregate op covering every agg of an
     Aggregate op (sum/mean/count share one pass; min/max ride along). ``w``
-    is the fused filter/validity mask."""
+    is the fused filter/validity mask; ``sid`` is None for a single segment.
+    The value columns go to the op as they are (the kernel reads them in
+    place)."""
     from repro_torch.kernels.ops import segment_agg_op
 
     src: list[str] = []
     for _, op, col in aggs:
         if op != "count" and col not in src:
             src.append(col)
-    n = w.shape[0]
-    if src:
-        vals = torch.stack([cols[c].to(torch.float32) for c in src], dim=1)
-    else:
-        vals = torch.zeros((n, 0), dtype=torch.float32, device=w.device)
     counts, sums, mins, maxs = segment_agg_op(
-        vals, w, sid, num_segments=num_segments
+        [cols[c].to(torch.float32) for c in src], w, sid,
+        num_segments=num_segments,
     )
     idx = {c: j for j, c in enumerate(src)}
     zero = counts.new_zeros(())

@@ -278,6 +278,244 @@ def test_compiled_plan_reaches_the_kernel_with_its_packed_program(dev, monkeypat
 
 
 # ---------------------------------------------------------------------------
+# segment_agg in one launch, gather_join's two routes, tree_gemm's wide path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,S,C,sorted_ids", [
+    (1 << 20, 8, 3, False), (1 << 20, 6, 3, True), (1 << 20, 1, 3, False),
+    (100_000, 1, 1, False), (4099, 2, 0, False), (0, 8, 3, False), (50_000, 256, 3, False),
+    (20_000, 1024, 3, True), (30_000, 1, 5, False), (3000, 3, 70, False),
+    (1000, 70_000, 1, False),
+])
+def test_segment_agg_kernel_matches_its_model_bitwise(dev, N, S, C, sorted_ids):
+    """Strided columns read in place, non-dyadic values: the kernel equals
+    ``tests/torch_agg_model.py`` bit for bit on the register path (S <= 8,
+    C <= 3; segment ids random, or sorted as coalesced requests come, in
+    long runs) and the shared path (more segments or columns, in groups past
+    what shared memory holds), one launch per 64 columns, two calls alike;
+    on dyadic data it equals the plain version bitwise."""
+    from repro_torch.kernels._build import sm_count
+    from torch_agg_model import segment_agg_model
+
+    rng = np.random.default_rng(N + S + C)
+    base = torch.tensor(rng.random(size=(N, C + 1)), dtype=torch.float32, device=dev)
+    cols = list(base[:, :C].unbind(1))  # stride C + 1
+    w = torch.tensor((rng.random(N) > 0.3).astype(np.float32), device=dev)
+    ids = rng.integers(0, S, size=N)
+    sid = torch.tensor(np.sort(ids) if sorted_ids else ids, dtype=torch.int32, device=dev)
+    before = LAUNCHES["segment_agg"]
+    got = ops.segment_agg_op(cols, w, sid, num_segments=S)
+    assert LAUNCHES["segment_agg"] == before + max(1, -(-C // 64))
+    assert all(torch.equal(x, y) for x, y in
+               zip(got, ops.segment_agg_op(cols, w, sid, num_segments=S)))
+    vals = base[:, :C].cpu()
+    parts = [segment_agg_model(vals[:, k:k + 64], w.cpu(), sid.cpu(), num_segments=S,
+                               sms=sm_count(dev)) for k in range(0, max(C, 1), 64)]
+    want = (parts[0][0], *(torch.cat([p[i] for p in parts], dim=1) for i in (1, 2, 3)))
+    for g, x in zip(got, want):
+        assert np.array_equal(_bits(g), _bits(x))
+    dy = torch.tensor(_dyadic(rng, (N, C)), device=dev)
+    got = ops.segment_agg_op(dy, w, None if S == 1 else sid, num_segments=S)
+    for g, x in zip(got, ref.segment_agg_ref(dy, w, sid, num_segments=S)):
+        assert np.array_equal(_bits(g), _bits(x))
+    if C and N:  # inf and NaN, on rows of weight 0 too (0 * inf is NaN)
+        base[::997, 0] = float("inf")
+        base[5::1009, C - 1] = float("nan")
+        got = ops.segment_agg_op(cols, w, sid, num_segments=S)
+        want = segment_agg_model(base[:, :C].cpu()[:, :64], w.cpu(), sid.cpu(),
+                                 num_segments=S, sms=sm_count(dev))
+        for g, x in zip(got, want):
+            g, x = g[:, :64] if g.dim() == 2 else g, x
+            assert torch.equal(torch.isnan(g.cpu()), torch.isnan(x))
+            keep = ~torch.isnan(x)
+            assert np.array_equal(_bits(g.cpu()[keep]), _bits(x[keep]))
+
+
+def test_segment_agg_kernel_replays_in_a_cuda_graph(dev):
+    """The last block resets the completion counter it used, so a captured
+    call replays correctly, again and again, beside eager calls."""
+    rng = np.random.default_rng(3)
+    n = 300_000
+    vals = torch.tensor(_dyadic(rng, (n, 3)), device=dev)
+    w = torch.tensor((rng.random(n) > 0.5).astype(np.float32), device=dev)
+    sid = torch.tensor(rng.integers(0, 8, size=n), dtype=torch.int32, device=dev)
+    want = ref.segment_agg_ref(vals, w, sid, num_segments=8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.segment_agg_op(vals, w, sid, num_segments=8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.segment_agg_op(vals, w, sid, num_segments=8) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        eager = ops.segment_agg_op(vals, w, sid, num_segments=8)
+        torch.cuda.synchronize()
+        for got in (*outs, eager):
+            for g, x in zip(got, want):
+                assert np.array_equal(_bits(g), _bits(x))
+
+
+JOIN_KEYS = {  # name -> (dim keys, has a dense index)
+    "dense": (np.setdiff1d(np.arange(1 << 16), np.arange(0, 1 << 16, 5)), True),
+    "sparse": (np.random.default_rng(1).choice(1 << 28, 1 << 16, replace=False), False),
+    "negative": (np.arange(-3000, 3000, 2), True),
+    "int32_limits": (np.array([-(2**31), -(2**31) + 3, 2**31 - 2, 2**31 - 1]), False),
+    "int32_low": (np.arange(-(2**31), -(2**31) + 4000, 3), True),
+    "single": (np.array([7]), True),
+    "empty": (np.zeros(0), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_KEYS))
+def test_gather_join_kernel_routes_bitwise(dev, name):
+    """The dimsort entry on the card holds a direct-address index exactly
+    where the keys' range allows; both routes (records built from the
+    index, and the search with its top levels in shared memory) equal the
+    plain version bitwise, misses and keys at the int32 limits included."""
+    from repro_torch.kernels.relational import dense_records
+    from repro_torch.relational.engine import dimsort_entry
+
+    keys, dense = JOIN_KEYS[name]
+    keys = keys.astype(np.int32)
+    rng = np.random.default_rng(len(name))
+    entry = dimsort_entry(rng.permutation(keys), dev)
+    assert ("index" in entry) == dense
+    M = keys.size
+    fk = np.concatenate([rng.choice(keys, 1 << 19) if M else np.zeros(0, np.int64),
+                         rng.integers(-(2**31), 2**31, 1 << 18),
+                         [-(2**31), 2**31 - 1, 0, -1]]).astype(np.int32)
+    fk = torch.tensor(fk, device=dev)
+    spay = torch.tensor(_dyadic(rng, (M, 2)), device=dev)
+    want = ref.gather_join_ref(fk, entry["keys"], spay)
+    routes = [ops.gather_join_op(fk, entry["keys"], spay)]
+    if dense:
+        records = dense_records(entry["index"], spay)
+        routes.append(ops.gather_join_op(fk, entry["keys"], spay, records=records,
+                                         lo=entry["lo"]))
+    for out, hit in routes:
+        assert np.array_equal(_bits(out), _bits(want[0])) and torch.equal(hit, want[1])
+
+
+def test_join_step_on_the_card_reads_the_index_and_a_payload_built_once(dev, monkeypatch):
+    """The dashboard join on an uploaded database: the op gets the dense
+    records built from the dimsort entry's index, and the same sorted
+    payload and records on every run."""
+    from repro_torch.relational import engine as teng
+    from repro_torch.relational.expr import Bin, Col, Const
+
+    rng = np.random.default_rng(4)
+    tables = {"d": {"k": np.arange(1000, dtype=np.int64), "v": _dyadic(rng, 1000)},
+              "f": {"fk": rng.integers(0, 1250, 50_000).astype(np.int64),
+                    "x": _dyadic(rng, 50_000)}}
+    plan = teng.Aggregate(
+        teng.Filter(teng.Join(teng.Scan("f", ["fk", "x"]), "d", "fk", "k", ["v"]),
+                    Bin("gt", Col("x"), Const(0.0))),
+        [("n", "count", "x"), ("s", "sum", "v"), ("m", "min", "v")])
+    calls = []
+    real = ops.gather_join_op
+    monkeypatch.setattr(ops, "gather_join_op",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    db = teng.upload_database(tables, dev)
+    cp = teng.compile_plan(plan, cache=False)
+    before = LAUNCHES["gather_join"]
+    outs = [cp.run(db).table.to_numpy() for _ in range(2)]
+    host = teng.compile_plan(plan, cache=False).run(tables, device="cpu").table.to_numpy()
+    assert LAUNCHES["gather_join"] == before + 2
+    (a0, k0), (a1, k1) = calls[:2]
+    assert a0[2] is a1[2] and k0["records"] is k1["records"]
+    assert (a0[2], k0["records"]) == db.dimsort("d", "k")["payloads"][("v",)]
+    for out in outs:
+        for k in host:
+            assert np.array_equal(_bits(torch.from_numpy(out[k])),
+                                  _bits(torch.from_numpy(host[k]))), k
+
+
+def _full_tree_program(T, depth, F, rng):
+    """T full binary trees of the given depth as a GEMM program (nodes in
+    breadth-first order, node i's children 2i + 1 (x <= threshold) and
+    2i + 2)."""
+    I, L = 2**depth - 1, 2**depth
+    A = np.zeros((T, F, I), np.float32)
+    feats = rng.integers(0, F, size=(T, I))
+    for t in range(T):
+        A[t, feats[t], np.arange(I)] = 1.0
+    B = rng.normal(size=(T, I)).astype(np.float32)
+    C = np.zeros((T, I, L), np.float32)
+    D = np.zeros((T, L), np.float32)
+    for leaf in range(L):
+        node = 0
+        for j in range(depth):
+            right = (leaf >> (depth - 1 - j)) & 1
+            C[:, node, leaf] = -1.0 if right else 1.0
+            D[:, leaf] += 0.0 if right else 1.0
+            node = 2 * node + 1 + right
+    V = rng.normal(size=(T, L)).astype(np.float32)
+    return A, B, C, D, V
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+def test_tree_gemm_kernel_wide_path_full_trees(dev, depth):
+    """Full trees of depth 8 (255 internal nodes, 8 decision words once
+    padded) and 10 (1,023 nodes, 32 words) run on the wide path within 1e-5
+    of the plain version, rows with +inf, -inf and NaN included (NaN in the
+    same places), two calls bit for bit alike."""
+    from repro_torch.kernels.tree_gemm import decision_words, launch_plan
+
+    rng = np.random.default_rng(depth)
+    F = 20
+    A, B, C, D, V = ops.pad_gemm_program(*_full_tree_program(4, depth, F, rng))
+    assert decision_words(A.shape[2]) > 6 and launch_plan(F, 4, A.shape[2], C.shape[2])[1] == 0
+    X = rng.normal(size=(3000, F)).astype(np.float32)
+    for r in range(0, 3000, 3):
+        X[r, rng.integers(0, F, size=1 + r % 2)] = rng.choice([np.inf, -np.inf, np.nan])
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    x, prog = t(X), [t(a) for a in (A, B, C, D, V)]
+    before = LAUNCHES["tree_gemm"]
+    got = ops.tree_gemm_op(x, *prog, base=0.25)
+    again = ops.tree_gemm_op(x, *prog, base=0.25)
+    assert LAUNCHES["tree_gemm"] == before + 2
+    xp = torch.nn.functional.pad(x, (0, A.shape[1] - F))
+    want = ref.tree_gemm_ref(xp, *prog, 0.25)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-5
+    assert np.array_equal(_bits(got), _bits(again))
+
+
+def test_explicit_gemm_strategy_runs_trees_past_six_words(dev):
+    """Trees of more than 192 internal nodes (depth 9: up to 285 here),
+    compiled with ``strategy="gemm"``, run on the card's wide path: the
+    program's scores are within 1e-5 of the same program's plain version on
+    the CPU, in one kernel launch."""
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.ml import GradientBoostingClassifier, fit_pipeline
+    from repro_torch.relational.table import to_device
+    from repro_torch.tensor.compile import _max_internal, compile_pipeline_tensor
+
+    train, infer = make_hospital(8000, seed=3), make_hospital(3000, seed=4)
+    pipe = fit_pipeline(
+        train.joined_columns(), train.label, train.numeric, train.categorical,
+        GradientBoostingClassifier(n_estimators=4, max_depth=9),
+        categories=train.categories(),
+    )
+    ens = next(n for n in pipe.nodes if n.op == "tree_ensemble").attrs["ensemble"]
+    assert _max_internal(ens) > 192
+    cols = infer.joined_columns()
+    outs = []
+    for d in ("cpu", dev):
+        prog = compile_pipeline_tensor(pipe, strategy="gemm", device=d).fn
+        before = LAUNCHES["tree_gemm"]
+        out = prog({n: to_device(cols[n], d) for n in pipe.input_names()})
+        outs.append({k: v.cpu() for k, v in out.items() if v.is_floating_point()})
+    assert LAUNCHES["tree_gemm"] == before + 1 and outs[0]
+    for k, want in outs[0].items():
+        assert float((outs[1][k] - want).abs().max()) <= 1e-5, k
+
+
+# ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 

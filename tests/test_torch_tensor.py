@@ -171,9 +171,10 @@ def test_tree_gemm_feature_chunk_fits_every_gemm_program(F, I, L, staged):
     through L1 otherwise, and stages the packed trees in chunks of at least
     one tree, ``CHUNK_SMEM`` bytes where a tree is smaller. Programs of up
     to 192 internal nodes (six decision words) run, 176 among them, as an
-    explicit ``tensor_strategy='gemm'`` may ask for."""
+    explicit ``tensor_strategy='gemm'`` may ask for; larger ones take the
+    wide path."""
     from repro_torch.kernels.tree_gemm import (
-        CHUNK_SMEM, SMEM_LIMIT, X_SMEM_LIMIT, XS, decision_words, launch_plan,
+        CHUNK_SMEM, ROWS, SMEM_LIMIT, X_SMEM_LIMIT, XS, decision_words, launch_plan,
     )
 
     stage_x, chunk = launch_plan(F, 150, I, L)
@@ -182,8 +183,11 @@ def test_tree_gemm_feature_chunk_fits_every_gemm_program(F, I, L, staged):
     assert stage_x == staged == (x_bytes <= X_SMEM_LIMIT)
     assert 1 <= chunk <= 150 and chunk * tree <= max(CHUNK_SMEM, tree)
     assert chunk * tree + (x_bytes if stage_x else 0) <= SMEM_LIMIT
-    with pytest.raises(ValueError, match="decision words"):
-        launch_plan(F, 150, 1024, 1024)
+    # 1,024 nodes (32 decision words) take the wide path: no trees staged,
+    # x staged where it fits beside the rows' decision words
+    words = 4 * decision_words(1024) * ROWS
+    assert launch_plan(F, 150, 1024, 1024) == (
+        x_bytes <= X_SMEM_LIMIT and x_bytes + words <= SMEM_LIMIT, 0)
 
 
 def test_compile_defaults_to_the_card(pipelines, monkeypatch):
