@@ -8,17 +8,22 @@ Run from the repository root, with no arguments::
 It builds the port's hand-written CUDA kernels from
 ``src/repro_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, into
 ``build/repro_torch_kernels/``) and drives the port's main path through the
-entry points a user calls: ``parse_prediction_query`` →
-``RavenOptimizer.optimize`` (``transform="dnn"``) → ``compile_plan`` →
-``CompiledPlan.run``. Two plans make up that path:
+entry points a user calls. Two plans make up that path:
 
 * the hospital prediction query ``QUERY`` over 100,000 rows, scored by a
-  gradient-boosting model of 150 trees of depth 5 trained on 4,096 rows
-  (one pure stage ``Scan→Filter→TensorOp→Filter→Aggregate``: the
-  ``featurize``, ``tree_gemm`` and ``segment_agg`` kernels);
+  gradient-boosting model of 150 trees of depth 5 trained on 4,096 rows,
+  through the front door: ``repro_torch.connect`` (the tables go to the
+  card once) → ``register_model`` → ``db.sql(QUERY)`` (and the fluent
+  builder, which must give the same fingerprint) →
+  ``prepare(transform="dnn")`` → ``prep()``, re-bound with
+  ``prep.bind(t=...)`` (one pure stage
+  ``Scan→Filter→TensorOp→Filter→Aggregate``: the ``featurize``,
+  ``tree_gemm`` and ``segment_agg`` kernels; ``featurize`` reads the
+  table's columns in place);
 * the filter→join→aggregate dashboard plan over a star schema of 2^20 fact
   rows and 2^16 dim rows with dyadic values (``gather_join`` and
-  ``segment_agg``), as a global fold and segmented into 6 requests;
+  ``segment_agg``), as a global fold and segmented into 6 requests, through
+  ``compile_plan`` → ``CompiledPlan.run``;
 
 and a third path serves an LM through ``build_model(get_config(...)).init``
 → ``ServeEngine.submit`` → ``ServeEngine.run``:
@@ -43,7 +48,9 @@ In order it
    attention kernels within 2e-2 in bf16 and 2e-5 in f32) and times it, its
    plain version and, where one exists, one PyTorch library call computing
    the same function, beside its bound on an H100, and again L2-cold
-   (bursts rotating over copies of its arguments); the attention kernels'
+   (bursts rotating over copies of its arguments; no one PyTorch call
+   computes ``featurize``'s function, so it has no library time); the
+   attention kernels'
    library time is that of the fastest ``scaled_dot_product_attention``
    backend that takes the call (with ``is_causal=True`` tried beside the
    boolean mask where Sq == Skv), named in the output; then ``tree_gemm``
@@ -51,18 +58,23 @@ In order it
    1e-5 of its plain version and NaN in the same places. A second call of
    ``featurize``, ``tree_gemm``, ``gather_join`` and ``segment_agg``
    repeats the first bit for bit. Sites the main path does not reach are
-   held and timed the same way: ``segment_agg`` at S = 256 (its shared
+   held and timed the same way: ``featurize`` on the hospital's columns
+   with one of them a stride-2 view and at Expedia's width (Kn = 8,
+   Kc = 20, 3,957 one-hot columns, 8,192 rows: a 4-row tile), bitwise;
+   ``segment_agg`` at S = 256 (its shared
    path) and on dyadic values at the hospital's shape (bitwise),
    ``gather_join``'s search route on dim keys spread over 2^28 (the
    dashboard's dense keys take the direct-address index), and
    ``tree_gemm``'s wide path on full trees of 255 and 1,023 nodes;
 4. zeroes every kernel's launch count and drives the main path: the
-   prediction query for three bindings of ``:t``, checked against the
-   numpy host interpreter ``run_pipeline``; the dashboard plan, global and
+   prepared query for three bindings of ``:t``, checked against the
+   numpy host interpreter ``run_pipeline``, the re-binds compiling nothing
+   (no plan-cache miss, no stage graph built); the dashboard plan, global and
    segmented, bitwise against a numpy host oracle and between
    ``RAVEN_KERNELS`` on and off; then reads the counts, each of which must
    be above 0 on the plan that reaches its kernel; and profiles one more
-   hospital request (the card's busy time and idle share);
+   hospital request (the card's busy time and idle share, one
+   ``featurize`` kernel and no ``torch.cat`` copy kernel in it);
 5. zeroes the counts again and serves the LM workload, printing prefill
    time per admission, the median decode tick, time to first token and
    generated tokens per second; reads the counts (40 ``flash_attention``
@@ -164,11 +176,10 @@ def gap_thresholds(scores, quantiles, min_gap: float = 2e-5) -> list[float]:
 
 
 def hospital_case(train_rows, infer_rows, n_estimators, max_depth, seed=0):
-    """Train the model with the port's trainer; returns the query, the
+    """Train the model with the port's trainer; returns the pipeline, the
     inference tables and the host oracle's inputs."""
     from repro_torch.data.datasets import make_hospital
     from repro_torch.ml import GradientBoostingClassifier, fit_pipeline, run_pipeline
-    from repro_torch.sql.parser import parse_prediction_query
 
     train = make_hospital(train_rows, seed=seed)
     infer = make_hospital(infer_rows, seed=seed)
@@ -181,9 +192,8 @@ def hospital_case(train_rows, infer_rows, n_estimators, max_depth, seed=0):
     train_s = time.perf_counter() - t0
     cols = infer.joined_columns()
     score = run_pipeline(pipe, {n: cols[n] for n in pipe.input_names()})[pipe.outputs[0]]
-    query = parse_prediction_query(QUERY, {"m": pipe}, infer.tables)
     return {
-        "query": query, "tables": infer.tables, "train_s": train_s,
+        "pipe": pipe, "tables": infer.tables, "train_s": train_s,
         "score": np.asarray(score, np.float64), "asthma": np.asarray(cols["asthma"]),
     }
 
@@ -266,20 +276,28 @@ def check_bitwise(got: dict, want: dict, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def compile_hospital(case, device):
-    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
-    from repro_torch.relational.engine import compile_plan, upload_database
+def prepare_hospital(case, t: float, device):
+    """The front door: connect (the tables go to ``device`` once), register
+    the model, the query as SQL text and through the fluent builder (one
+    fingerprint), prepared with ``:t`` bound. Returns (session, prepared
+    query)."""
+    import repro_torch as raven
 
-    plan, report = RavenOptimizer(
-        options=OptimizerOptions(transform="dnn")
-    ).optimize(case["query"])
-    return compile_plan(plan), report, upload_database(case["tables"], device)
+    db = raven.connect(case["tables"], stats="auto", device=device)
+    db.register_model("m", case["pipe"])
+    query = db.sql(QUERY)
+    built = (db.table("patients").predict("m").where("asthma = 1")
+             .where("score >= :t").select("COUNT(*)", "AVG(score)"))
+    check(built.fingerprint() == query.fingerprint(),
+          "the builder's fingerprint differs from the SQL text's")
+    return db, query.prepare(transform="dnn", params={"t": t})
 
 
-def run_hospital(cp, db, t: float, device) -> tuple[int, float, float]:
-    """One request; returns (COUNT, AVG, milliseconds to the host result)."""
+def run_hospital(prep, t: float) -> tuple[int, float, float]:
+    """One request, re-bound to ``t``; returns (COUNT, AVG, milliseconds to
+    the host result)."""
     t0 = time.perf_counter()
-    out = cp.run(db, params={"t": t}, device=device).table.to_numpy()
+    out = prep.bind(t=t)()
     ms = 1e3 * (time.perf_counter() - t0)
     count, avg = out["count_rows"], out["mean_score"]
     check(count.shape == avg.shape == (1,) and np.isfinite(avg).all(), out)
@@ -553,19 +571,26 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
     library = None
     rate = FP32_FLOPS_PER_S
     if name == "featurize":
-        num, cat, offset, scale, values, val_col = args
-        lens = np.bincount(val_col.cpu().numpy(), minlength=cat.shape[1])
-        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-        segments = tuple((int(s), int(n)) for s, n in zip(starts, lens))
-        plain = lambda: ref.featurize_ref(num, cat, offset, scale, values, segments)  # noqa: E731
+        from repro_torch.kernels.ops import stack_columns
+
+        num, cat, offset, scale, values, val_col, segments = args
+        N, dev = num[0].shape[0], num[0].device
+        plain = lambda: ref.featurize_ref(  # noqa: E731
+            stack_columns(num, N, torch.float32, dev), stack_columns(cat, N, torch.int32, dev),
+            offset, scale, values, segments)
         got, want = kern(*args), plain()
         err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(got.shape == want.shape, f"featurize shape {tuple(got.shape)}")
         check(np.array_equal(bits(got.cpu()), bits(want.cpu())), "featurize not bitwise")
-        N, Kn = num.shape
-        Vtot = values.shape[0]
-        moved = nbytes(num, cat, offset, scale, values, val_col, got)
+        Kn, Vtot = offset.shape[0], values.shape[0]
+        # each input column read once (N values, whatever its stride), the
+        # constants, the output written once
+        moved = (N * 4 * (Kn + len(segments))
+                 + nbytes(offset, scale, values, val_col, got))
         ops_ = N * (2 * Kn + Vtot)
-        shape = f"N={N} Kn={Kn} Kc={cat.shape[1]} Vtot={Vtot}"
+        strided = sum(c.stride(0) != 1 for c in num + cat)
+        shape = (f"N={N} Kn={Kn} Kc={len(segments)} Vtot={Vtot} ({len(num) + len(cat)} "
+                 f"tensors read in place, {strided} of them strided)")
     elif name == "tree_gemm":
         x, A, B, C, D, V, base, packed = args
         xp = torch.nn.functional.pad(x, (0, A.shape[1] - x.shape[1]))
@@ -719,9 +744,12 @@ def full_tree_program(T: int, depth: int, F: int, rng):
     return A, B, C, D, V
 
 
-def extra_sites(dev) -> list[tuple[str, str, tuple, dict]]:
+def extra_sites(dev, calls) -> list[tuple[str, str, tuple, dict]]:
     """Call sites the main path does not reach, held against the plain
-    versions and timed all the same: ``segment_agg`` at S = 256 (the shared
+    versions and timed all the same: ``featurize`` on the hospital query's
+    recorded columns with one numeric column replaced by a stride-2 view of
+    the same values, and at Expedia's width (8 numeric and 20 categorical
+    columns, 3,957 one-hot columns, 8,192 rows); ``segment_agg`` at S = 256 (the shared
     path) on the dashboard's row count and on dyadic values at the hospital
     query's shape (bitwise), ``gather_join``'s search route on
     2^16 dim keys spread over 2^28 (no dense index), and ``tree_gemm``'s
@@ -731,15 +759,32 @@ def extra_sites(dev) -> list[tuple[str, str, tuple, dict]]:
     from repro_torch.kernels.tree_gemm import launch_plan, packed_on
     from repro_torch.relational.engine import dimsort_entry
 
+    from repro_torch.kernels.featurize import segment_columns
+
     rng = np.random.default_rng(11)
     t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
     dy = lambda shape: (rng.integers(-40, 40, size=shape) * 0.25).astype(np.float32)  # noqa: E731
+    num, cat, *consts = next(a for n, _, a, _ in calls if n == "featurize")
+    col = num[1].reshape(-1)
+    interleaved = torch.stack([col, torch.zeros_like(col)], 1).reshape(-1)
+    sites = [("featurize", "hospital, one column stride 2",
+              ([num[0], interleaved[::2], *num[2:]], cat, *consts), {})]
+    lengths = [198] * 19 + [195]
+    n = 8192
+    segments = tuple((sum(lengths[:j]), ln) for j, ln in enumerate(lengths))
+    sites.append(("featurize", "Expedia's width", (
+        [t(rng.normal(size=n).astype(np.float32)) for _ in range(8)],
+        [t(rng.integers(-1, ln, n).astype(np.int32)) for ln in lengths],
+        t(rng.normal(size=8).astype(np.float32)),
+        t(rng.uniform(0.5, 2.0, size=8).astype(np.float32)),
+        t(np.concatenate([np.arange(ln) for ln in lengths]).astype(np.int32)),
+        segment_columns(segments, dev), segments), {}))
     cols = [t(dy(FACT_ROWS)) for _ in MEASURES]
     w = t((rng.random(FACT_ROWS) > 0.5).astype(np.float32))
     sid = t(rng.integers(0, 256, size=FACT_ROWS).astype(np.int32))
-    sites = [("segment_agg", "dyadic, S=256", (cols, w, sid), {"num_segments": 256}),
-             ("segment_agg", "dyadic, hospital's C=1", ([t(dy(INFER_ROWS))], w[:INFER_ROWS],
-                                                        None), {"num_segments": 1})]
+    sites += [("segment_agg", "dyadic, S=256", (cols, w, sid), {"num_segments": 256}),
+              ("segment_agg", "dyadic, hospital's C=1", ([t(dy(INFER_ROWS))], w[:INFER_ROWS],
+                                                         None), {"num_segments": 1})]
     keys = rng.choice(1 << 28, size=DIM_ROWS, replace=False).astype(np.int32)
     entry = dimsort_entry(keys, dev)
     check("index" not in entry, "keys over 2^28 got a dense index")
@@ -1051,27 +1096,39 @@ def profile_lm(model, params, requests, dev, tick_ms: float) -> None:
           f"{1 - parts['decode tick'] / tick_ms!r}", flush=True)
 
 
-def profile_hospital(cp, db, t: float, dev, request_ms: float) -> None:
+# the request's card busy time while two torch.cat copies built featurize's
+# inputs (chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W)
+CAT_COPIES_HOSPITAL_BUSY_MS = 0.415
+
+
+def profile_hospital(prep, t: float, request_ms: float) -> None:
     """Where a hospital request's time goes, by torch.profiler: one request
     (warm), its host time, the card's busy time (the sum of its kernels: one
-    stream) and the kernels that take most of it; the idle share is set
-    against the median of the unprofiled requests, since profiling slows
-    the host."""
+    stream) and every kernel it ran; the idle share is set against the
+    median of the unprofiled requests, since profiling slows the host. The
+    request must run one ``featurize`` kernel and no ``torch.cat`` copy
+    (``CatArrayBatchedCopy``): the kernel reads the table's columns in
+    place."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_hospital(cp, db, t, dev)
+        _, _, wall = run_hospital(prep, t)
     kernels = device_ms_by_kernel(prof)
     busy = sum(ms for _, ms in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(f"profile hospital request: host {wall!r} ms under the profiler, card busy "
-          f"{busy!r} ms in {sum(c for c, _ in kernels.values())} kernels; top (launches, "
-          "ms): " + "; ".join(f"{name[:60]} ({c}, {ms:.4f})" for name, (c, ms) in top),
+          f"{busy!r} ms in {sum(c for c, _ in kernels.values())} kernels (with the "
+          f"torch.cat copies: {CAT_COPIES_HOSPITAL_BUSY_MS} ms); every kernel (launches, ms): "
+          + "; ".join(f"{name[:60]} ({c}, {ms:.4f})" for name, (c, ms) in ranked),
           flush=True)
     print(f"profile: a hospital request's card busy time is {busy!r} ms of the "
           f"unprofiled median request {request_ms!r} ms: idle share "
           f"{1 - busy / request_ms!r}", flush=True)
+    feat = [c for name, (c, _) in kernels.items() if "featurize_kernel" in name]
+    check(feat == [1], f"featurize kernels in the request: {feat}")
+    cats = [name for name in kernels if "CatArrayBatchedCopy" in name]
+    check(not cats, f"torch.cat copies in the request: {cats}")
 
 
 def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
@@ -1121,8 +1178,12 @@ def main() -> int:
     print(f"trained {N_ESTIMATORS} trees of depth {MAX_DEPTH} on {TRAIN_ROWS} "
           f"rows in {case['train_s']:.1f} s", flush=True)
     thresholds = gap_thresholds(case["score"], (0.4, 0.5, 0.6))
-    cp, report, db = compile_hospital(case, dev)
-    print("hospital plan:", report.stages, report.notes, report.relational, flush=True)
+    t0 = time.perf_counter()
+    session, prep = prepare_hospital(case, thresholds[1], dev)
+    report = prep.report
+    print(f"hospital query: connect, register, SQL and builder (one fingerprint), "
+          f"prepare in {time.perf_counter() - t0:.2f} s; plan:", report.stages,
+          report.notes, report.relational, flush=True)
     tables = dashboard_tables(FACT_ROWS, DIM_ROWS, seed=60)
     seg = np.sort(np.random.default_rng(2).integers(0, N_REQUESTS, size=FACT_ROWS)
                   ).astype(np.int32)
@@ -1133,14 +1194,14 @@ def main() -> int:
     # warm-up, recording what the main path hands each kernel
     with Recorder() as rec:
         rec.label = "hospital"
-        run_hospital(cp, db, thresholds[1], dev)
+        run_hospital(prep, thresholds[1])
         rec.label = "dashboard"
         run_dashboard(tables, dev, "on")
         rec.label = "dashboard-segmented"
         run_dashboard(tables, dev, "on", segments=(seg, N_REQUESTS))
         _, _, wall = serve_lm(model, params, requests, dev, recorder=rec)
         print(f"lm warm-up served {LM_REQUESTS} requests in {wall:.2f} s", flush=True)
-    rows = parity_phase(rec.calls, extra_sites(dev))
+    rows = parity_phase(rec.calls, extra_sites(dev, rec.calls))
     rows["tree_gemm"]["max_abs_err"] = max(rows["tree_gemm"]["max_abs_err"],
                                            non_finite_tree_gemm(rec.calls))
     del rec
@@ -1148,17 +1209,31 @@ def main() -> int:
     # the main path, counted
     for name in KERNELS:
         _build.LAUNCHES[name] = 0
+    from repro_torch.relational import engine
+
+    builds = []
+    real_build = engine._build_compiled
+    engine._build_compiled = lambda *a: builds.append(a) or real_build(*a)
+    misses, compiled = session.cache_stats()["misses"], prep.compiled
     request_ms = []
     for t in thresholds:
-        count, avg, ms = run_hospital(cp, db, t, dev)
+        count, avg, ms = run_hospital(prep, t)
         request_ms.append(ms)
         want_count, want_avg = hospital_oracle(case, t)
         print(f"hospital t={t!r}: COUNT={count} AVG={avg!r} host COUNT={want_count} "
               f"AVG={want_avg!r} request_ms={ms!r}", flush=True)
         check(count == want_count > 0, (count, want_count))
         check(abs(avg - want_avg) <= 1e-5 * abs(want_avg), (avg, want_avg))
+    engine._build_compiled = real_build
+    check(not builds and session.cache_stats()["misses"] == misses
+          and prep.compiled is compiled, "a re-bind compiled something")
+    print(f"hospital re-binds: {len(thresholds)} bindings, plan-cache misses "
+          f"{misses} before and after, no stage graph built; fingerprint "
+          f"{prep.fingerprint[:16]}", flush=True)
     model_counts = dict(_build.LAUNCHES)
     print("launches after the prediction query:", model_counts, flush=True)
+    check(model_counts["featurize"] == len(thresholds),
+          f"featurize launches {model_counts['featurize']} for {len(thresholds)} requests")
     check(all(model_counts[n] > 0 for n in ("featurize", "tree_gemm", "segment_agg")),
           f"a model kernel was not launched: {model_counts}")
     check_dashboard(tables, seg, dev)
@@ -1167,7 +1242,7 @@ def main() -> int:
     check(counts["gather_join"] > 0 and counts["segment_agg"] > model_counts["segment_agg"],
           f"a relational kernel was not launched: {counts}")
     print("dashboard: global and segmented bitwise vs host and on vs off", flush=True)
-    profile_hospital(cp, db, thresholds[1], dev, float(np.median(request_ms)))
+    profile_hospital(prep, thresholds[1], float(np.median(request_ms)))
 
     # the LM serving path, counted
     for name in KERNELS:

@@ -3,17 +3,83 @@
 A second package beside the JAX reference (``repro``), with the same
 layout: ``ml`` (pipelines, training), ``data`` (datasets), ``core`` (IR,
 rules, optimizer), ``sql`` (parser), ``relational`` (plans, engine),
-``exec`` (stage graph), ``tensor`` (the MLtoDNN tensor compiler) and
+``exec`` (stage graph), ``tensor`` (the MLtoDNN tensor compiler),
 ``kernels`` (hand-written CUDA kernels for Hopper, with plain PyTorch
-versions). It imports neither JAX nor the reference package, and runs on the
-card unless the caller passes ``device="cpu"``::
+versions) and ``session`` (the front door). It imports neither JAX nor the
+reference package, and runs on the card unless the caller passes
+``device="cpu"``::
 
-    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
-    from repro_torch.relational.engine import compile_plan, upload_database
-    from repro_torch.sql.parser import parse_prediction_query
+    import repro_torch as raven
 
-    q = parse_prediction_query(sql, {"m": pipe}, tables)
-    plan, report = RavenOptimizer(options=OptimizerOptions(transform="dnn")).optimize(q)
-    db = upload_database(tables)          # once
-    out = compile_plan(plan).run(db, params={"t": 0.5}).table
+    db = raven.connect(tables, stats="auto")       # tables to the card, once
+    db.register_model("m", pipe)
+    prep = db.sql(
+        "SELECT COUNT(*), AVG(score) FROM PREDICT(model='m', data=patients) "
+        "WHERE score >= :t"
+    ).prepare(transform="dnn", params={"t": 0.5})
+    print(prep.explain())
+    out = prep()                 # one-shot
+    prep.bind(t=0.8)             # same plan, no new compile
+
+Lower layers (``repro_torch.core``, ``repro_torch.sql``,
+``repro_torch.relational``) remain importable directly.
 """
+from repro_torch.errors import (
+    FaultInjectedError,
+    RavenError,
+    RecoveryError,
+    RegistryStateError,
+    RequestFailedError,
+    RequestTimeoutError,
+    ServerOverloadedError,
+    SQLSyntaxError,
+    StaleQueryError,
+    TransientError,
+    TransientFaultError,
+    UnboundParameterError,
+    UnknownColumnError,
+    UnknownModelError,
+    UnknownModelVersionError,
+    UnknownParameterError,
+    UnknownQueryError,
+    UnknownTableError,
+)
+from repro_torch.options import ConnectOptions, ServeOptions
+from repro_torch.serve.registry import ModelRegistry, ModelVersion
+from repro_torch.session import (
+    PreparedQuery,
+    Query,
+    QueryBuilder,
+    Session,
+    connect,
+)
+
+__all__ = [
+    "connect",
+    "Session",
+    "Query",
+    "QueryBuilder",
+    "PreparedQuery",
+    "RavenError",
+    "SQLSyntaxError",
+    "UnknownModelError",
+    "UnknownTableError",
+    "UnknownColumnError",
+    "UnboundParameterError",
+    "UnknownParameterError",
+    "UnknownQueryError",
+    "StaleQueryError",
+    "ServerOverloadedError",
+    "UnknownModelVersionError",
+    "RegistryStateError",
+    "ConnectOptions",
+    "ServeOptions",
+    "ModelRegistry",
+    "ModelVersion",
+    "FaultInjectedError",
+    "TransientError",
+    "TransientFaultError",
+    "RequestTimeoutError",
+    "RequestFailedError",
+    "RecoveryError",
+]

@@ -9,8 +9,9 @@ Order (paper §5.2 closing summary):
   5. lowering: LPredict → TensorOp
 
 This slice of the port lowers ``transform="dnn"`` only, whole pipelines
-only. MLtoSQL (``"sql"``), the interpreted ML runtime (``"none"``), the
-learned runtime selection (``transform=None``) and split lowering raise
+only. MLtoSQL (``"sql"``), the interpreted ML runtime (``"none"``, which
+``transform=None`` without a strategy resolves to, as in the reference),
+learned runtime selection (a ``strategy``) and split lowering raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -42,20 +43,25 @@ from repro_torch.relational.engine import (
     Aggregate,
     Filter,
     Join,
+    MLUdf,
     PhysicalPlan,
     Project,
     Scan,
     TensorOp,
+    plan_children,
     walk_plan,
 )
+from repro_torch.relational.expr import format_expr
 
 _NOT_PORTED = {
-    "sql": "MLtoSQL (ROADMAP.md Queue 1, MLtoSQL)",
+    "sql": "MLtoSQL (ROADMAP.md Queue 1 item 5, MLtoSQL)",
     "none": "the interpreted ML runtime behind an MLUdf host boundary "
-            "(ROADMAP.md Queue 1, split lowering)",
-    None: "learned runtime selection (ROADMAP.md Queue 1, runtime "
-          "selection: core/strategies.py)",
+            "(ROADMAP.md Queue 1 item 4, split lowering)",
 }
+STRATEGY_NOT_PORTED = (
+    "learned runtime selection (ROADMAP.md Queue 1 item 9, runtime "
+    "selection: core/strategies.py)"
+)
 
 
 @dataclass
@@ -63,7 +69,8 @@ class OptimizerOptions:
     predicate_pruning: bool = True
     projection_pushdown: bool = True
     data_induced: bool = True
-    transform: Optional[str] = None  # force {'none','sql','dnn'}; None -> strategy
+    # force {'none','sql','dnn'}; None -> the strategy's pick, else 'none'
+    transform: Optional[str] = None
     tensor_strategy: str = "auto"  # 'auto' | 'gemm' | 'traversal'
     # the reference's use_pallas: None (or True) sends CUDA tensors to the
     # hand-written kernels, False runs the plain torch composition
@@ -105,7 +112,7 @@ class RavenOptimizer:
     def __init__(self, strategy=None, options: Optional[OptimizerOptions] = None):
         if strategy is not None:
             raise NotImplementedError(
-                f"a runtime-selection strategy is not ported yet: {_NOT_PORTED[None]}"
+                f"a runtime-selection strategy is not ported yet: {STRATEGY_NOT_PORTED}"
             )
         self.options = options or OptimizerOptions()
 
@@ -132,7 +139,8 @@ class RavenOptimizer:
             prune_relational_columns(q, eliminate_joins=False)
 
         for i, pred in enumerate(q.predict_nodes()):
-            t = opt.transform
+            # no transform and no strategy: the reference's default, "none"
+            t = opt.transform if opt.transform is not None else "none"
             if t != "dnn":
                 raise NotImplementedError(
                     f"transform={t!r} is not ported yet: {_NOT_PORTED.get(t, t)}"
@@ -223,3 +231,41 @@ class RavenOptimizer:
                 "MLtoDNN fused featurize kernel: " + ", ".join(comp.fused)
             )
         return TensorOp(child, fn, names)
+
+
+def format_physical_plan(p: PhysicalPlan, indent: int = 0) -> str:
+    """Indented rendering of a lowered physical plan (EXPLAIN output).
+
+    Scans show the columns that survived projection pushdown; Projects show
+    compiled model expressions (summarized when large); Filters show the
+    thresholds as bound (``:param`` placeholders by name).
+    """
+    pad = "  " * indent
+    if isinstance(p, Scan):
+        line = f"{pad}Scan[{p.table}] cols=({', '.join(p.columns)})"
+    elif isinstance(p, Join):
+        line = (
+            f"{pad}Join[{p.dim_table}] on {p.fact_key}={p.dim_key} "
+            f"bring=({', '.join(p.dim_columns)})"
+        )
+    elif isinstance(p, Filter):
+        line = f"{pad}Filter[{format_expr(p.expr)}]"
+    elif isinstance(p, Project):
+        exprs = ", ".join(f"{k}={format_expr(e)}" for k, e in p.exprs.items())
+        keep = "*" if p.keep is None else f"({', '.join(p.keep)})"
+        line = f"{pad}Project[keep={keep}{'; ' + exprs if exprs else ''}]"
+    elif isinstance(p, MLUdf):
+        line = (
+            f"{pad}MLUdf[{p.pipeline.n_ops()}-op pipeline -> "
+            f"({', '.join(p.output_names)}); host boundary, "
+            f"batch={p.batch_size}]"
+        )
+    elif isinstance(p, TensorOp):
+        line = f"{pad}TensorOp[fused tensor program -> ({', '.join(p.output_names)})]"
+    elif isinstance(p, Aggregate):
+        aggs = ", ".join(f"{n}={op}({c})" for n, op, c in p.aggs)
+        line = f"{pad}Aggregate[{aggs}]"
+    else:
+        raise TypeError(type(p))
+    kids = plan_children(p)
+    return "\n".join([line] + [format_physical_plan(c, indent + 1) for c in kids])

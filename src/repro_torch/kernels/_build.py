@@ -34,8 +34,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argument types (every one returns cudaError_t)
 SIGNATURES: dict[str, list] = {
-    # num, cat, offset, scale, cat_values, val_col, out, N, Kn, Kc, Vtot, stream
-    "raven_featurize": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # cols, strides, Kn, Kc, offset, scale, cat_values, val_col, cat_base, V,
+    # out, out_stride, N, rows, stream path, blocks, smem, stream
+    "raven_featurize": [
+        _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _L, _L, _I, _I, _I, _I, _P,
+    ],
     # x, nodes, leaves, counts, out, base, N, Fx, T, I, L, W, chunk, stage_x, stream
     "raven_tree_gemm": [
         _P, _P, _P, _P, _P, ctypes.c_float, _L, _I, _I, _I, _I, _I, _I, _I, _P,

@@ -100,20 +100,49 @@ def tree_gemm_op(x, A, B, C, D, V, *, base: float, packed=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _parts(x) -> list:
+    return [x] if torch.is_tensor(x) else list(x)
+
+
+def stack_columns(x, n_rows: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """The columns of ``x`` (an (N,K) tensor, or a sequence of (N,) /
+    (N,k) tensors) as one (N,K) tensor of ``dtype``: the plain version's
+    input. A 2-D tensor is passed as it is."""
+    if torch.is_tensor(x):
+        return x
+    parts = [(p[:, None] if p.dim() == 1 else p).to(dtype) for p in x]
+    if not parts:
+        return torch.zeros((n_rows, 0), dtype=dtype, device=device)
+    return torch.cat(parts, 1)
+
+
 def featurize_op(num, cat, offset, scale, cat_values, cat_segments, val_col=None):
-    """Fused scaler + one-hot + concat → (N, Kn + Vtot) f32. ``val_col`` is
-    the kernel's expansion of ``cat_segments`` (built from them when not
-    given; programs pass the copy they hold on the device)."""
-    if _route(num, "featurize"):
+    """Fused scaler + one-hot + concat → (N, Kn + Vtot) f32. ``num`` and
+    ``cat`` are each an (N,K) tensor or a sequence of (N,) / (N,k) tensors
+    (the kernel reads them in place; only the plain version stacks them).
+    A column whose dtype is not float32 (numeric) or int32 (categorical) is
+    converted on its own first. ``val_col`` is the kernel's expansion of
+    ``cat_segments`` (built from them when not given; programs pass the
+    copy they hold on the device)."""
+    nums, cats = _parts(num), _parts(cat)
+    if not nums and not cats:
+        raise ValueError("featurize: no input tensor to take the row count from")
+    probe = (nums + cats)[0]
+    if _route(probe, "featurize"):
         from repro_torch.kernels.featurize import featurize, segment_columns
 
         if val_col is None:
-            val_col = segment_columns(cat_segments, num.device)
+            val_col = segment_columns(cat_segments, probe.device)
         return featurize(
-            num.to(torch.float32).contiguous(), cat.to(torch.int32).contiguous(),
-            offset, scale, cat_values, val_col,
+            [p if p.dtype == torch.float32 else p.to(torch.float32) for p in nums],
+            [p if p.dtype == torch.int32 else p.to(torch.int32) for p in cats],
+            offset, scale, cat_values, val_col, cat_segments,
         )
-    return _ref.featurize_ref(num, cat, offset, scale, cat_values, cat_segments)
+    return _ref.featurize_ref(
+        stack_columns(num, probe.shape[0], torch.float32, probe.device),
+        stack_columns(cat, probe.shape[0], torch.int32, probe.device),
+        offset, scale, cat_values, cat_segments,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -222,13 +222,28 @@ class Database(dict):
     integer column it uploaded from numpy and each Join key's baked sort,
     computed on first use."""
 
-    def __init__(self, tables: dict, device: torch.device, host: dict):
+    def __init__(self, tables: dict, device: torch.device, host: dict,
+                 base: Optional[tuple["Database", str]] = None):
         super().__init__(tables)
         self.device = device
         self._host = host  # (table, column) -> host copy of an integer column
         self._sorts: dict[tuple[str, str], dict[str, Any]] = {}
+        # (database, table) where this one is that database with the table
+        # replaced: the sorts of its other tables are that database's
+        self._base = base
+
+    def replace(self, table: str, columns: dict) -> "Database":
+        """This database with ``table``'s columns replaced by ``columns``,
+        uploaded to its device (the only upload); the other tables are the
+        same tensors, and their Join sorts are computed once, here."""
+        new = upload_database({table: columns}, self.device)
+        host = {k: v for k, v in self._host.items() if k[0] != table}
+        host.update(new._host)
+        return Database({**self, table: new[table]}, self.device, host, (self, table))
 
     def dimsort(self, table: str, column: str) -> dict[str, Any]:
+        if self._base is not None and table != self._base[1]:
+            return self._base[0].dimsort(table, column)
         key = (table, column)
         if key not in self._sorts:
             host = self._host.get(key)

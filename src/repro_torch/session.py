@@ -1,0 +1,490 @@
+"""One front door for prediction queries: sessions, prepared queries, EXPLAIN.
+
+The reference package's user-facing surface over the parser, the unified
+IR, the optimizer and the engine, on the port's device::
+
+    import repro_torch as raven
+
+    db = raven.connect(tables, stats="auto")        # tables to the card, once
+    db.register_model("risk", pipe)                 # or db.models.publish(...)
+
+    q = db.sql(
+        "SELECT COUNT(*), AVG(score) FROM PREDICT(model='risk', data=patients) "
+        "AS p WHERE score >= :t"
+    )
+    # ...or the fluent builder — same unified IR, same fingerprint:
+    q = (db.table("patients").predict("risk").where("score >= :t")
+         .select("COUNT(*)", "AVG(score)"))
+
+    prep = q.prepare(transform="dnn", params={"t": 0.6})
+    print(prep.explain())        # logical -> physical -> stage graph
+    out = prep()                 # one-shot execution, numpy columns out
+    prep.bind(t=0.9)             # re-bind: same plan, no new compile
+    out = prep(batch)            # a batch replaces the fact table's rows
+    db.cache_stats()             # plan-cache accounting and the models
+
+``:param`` placeholders lower to canonical ``Param`` slots that hash by name,
+so a prepared plan re-binds thresholds without re-optimizing, re-compiling,
+or changing its fingerprint. The session uploads its tables to its device
+once, at :func:`connect`; a call uploads only the ``batch`` it is given.
+
+What needs serving, a cache directory, the verifier or fault injection
+raises ``NotImplementedError`` naming the ROADMAP item that ports it:
+``serve``/``submit``/``flush``/``server`` item 6, ``cache_dir``/
+``cache_max_bytes``/``recover``/``faults`` item 7, ``verify`` item 8, and a
+runtime-selection ``strategy`` item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Union
+
+import numpy as np
+
+from repro_torch.core.ir import PredictionQuery, TableStats, format_logical_plan
+from repro_torch.core.optimizer import (
+    STRATEGY_NOT_PORTED,
+    OptimizationReport,
+    OptimizerOptions,
+    RavenOptimizer,
+    format_physical_plan,
+)
+from repro_torch.device import resolve_device
+from repro_torch.errors import RavenError, UnknownTableError, check_params
+from repro_torch.options import ConnectOptions
+from repro_torch.relational.engine import (
+    PLAN_CACHE_STATS,
+    PhysicalPlan,
+    Scan,
+    compile_plan,
+    upload_database,
+    walk_plan,
+)
+from repro_torch.relational.expr import Const, Expr, Param
+from repro_torch.serve.registry import ModelRegistry
+from repro_torch.sql.parser import (
+    QuerySpec,
+    build_prediction_query,
+    canonical_op,
+    parse_condition,
+    parse_select_items,
+    parse_spec,
+)
+
+SERVING_NOT_PORTED = (
+    "serving (the bucketed, micro-batched query server) is not ported yet: "
+    "ROADMAP.md Queue 1 item 6, serving"
+)
+PERSISTENCE_NOT_PORTED = (
+    "is not ported yet: ROADMAP.md Queue 1 item 7, persistence and lifecycle"
+)
+VERIFY_NOT_PORTED = (
+    "plan verification is not ported yet: ROADMAP.md Queue 1 item 8, "
+    "static analysis"
+)
+
+
+def connect(
+    tables: dict[str, dict[str, np.ndarray]],
+    stats: Union[str, dict[str, TableStats], None] = "auto",
+    *,
+    partition_cols: Optional[dict[str, str]] = None,
+    strategy=None,
+    options: Union[ConnectOptions, OptimizerOptions, None] = None,
+    cache_dir: Optional[str] = None,
+    cache_max_bytes: Optional[int] = None,
+    verify: Union[str, bool, None] = None,
+    device=None,
+) -> "Session":
+    """Open a session over a database of named column-dict tables.
+
+    ``stats="auto"`` computes :class:`TableStats` for every table once (with
+    optional per-table partition columns for the data-induced rule); pass a
+    dict to supply stats yourself, or ``None`` to skip statistics entirely.
+    ``options`` is a :class:`ConnectOptions` bundle or a bare
+    :class:`OptimizerOptions` (the session's optimizer defaults, which
+    :meth:`Query.prepare` can override per query). ``device`` is where the
+    tables live and queries run: the card unless the caller passes
+    ``device="cpu"``. ``strategy``, ``cache_dir``, ``cache_max_bytes`` and
+    ``verify``, and the bundle's ``faults`` and ``rollback``, raise
+    ``NotImplementedError`` naming their ROADMAP items.
+    """
+    return Session(
+        tables, stats, partition_cols=partition_cols, strategy=strategy,
+        options=options, cache_dir=cache_dir, cache_max_bytes=cache_max_bytes,
+        verify=verify, device=device,
+    )
+
+
+def _refuse_unported(copts: ConnectOptions) -> None:
+    """Raise for every session knob the port does not have yet: none is
+    silently ignored."""
+    if copts.cache_dir is not None or copts.cache_max_bytes is not None:
+        raise NotImplementedError(f"the artifact store (cache_dir) {PERSISTENCE_NOT_PORTED}")
+    if copts.faults is not None or copts.rollback is not None:
+        raise NotImplementedError(f"fault injection and rollback {PERSISTENCE_NOT_PORTED}")
+    if copts.verify is not None:
+        raise NotImplementedError(VERIFY_NOT_PORTED)
+    if copts.strategy is not None:
+        raise NotImplementedError(
+            f"a runtime-selection strategy is not ported yet: {STRATEGY_NOT_PORTED}"
+        )
+
+
+class Session:
+    """Owns the database (on its device), statistics and model registry."""
+
+    def __init__(
+        self,
+        tables: dict[str, dict[str, np.ndarray]],
+        stats: Union[str, dict[str, TableStats], None] = "auto",
+        *,
+        partition_cols: Optional[dict[str, str]] = None,
+        strategy=None,
+        options: Union[ConnectOptions, OptimizerOptions, None] = None,
+        cache_dir: Optional[str] = None,
+        cache_max_bytes: Optional[int] = None,
+        verify: Union[str, bool, None] = None,
+        device=None,
+    ):
+        if cache_dir is not None or cache_max_bytes is not None:
+            raise NotImplementedError(f"the artifact store (cache_dir) {PERSISTENCE_NOT_PORTED}")
+        if verify is not None:
+            raise NotImplementedError(VERIFY_NOT_PORTED)
+        copts = ConnectOptions.resolve(
+            options, partition_cols=partition_cols, strategy=strategy
+        )
+        _refuse_unported(copts)
+        self.connect_options = copts
+        self.options = copts.optimizer
+        self.device = resolve_device(device)
+        self.tables = {
+            t: {c: np.asarray(v) for c, v in cols.items()}
+            for t, cols in tables.items()
+        }
+        if stats == "auto":
+            parts = copts.partition_cols or {}
+            self.stats = {
+                t: TableStats.of(cols, partition_col=parts.get(t))
+                for t, cols in self.tables.items()
+            }
+        elif stats is None:
+            self.stats = {}
+        elif isinstance(stats, dict):
+            self.stats = dict(stats)
+        else:
+            raise RavenError(
+                f"stats must be 'auto', a dict, or None — got {stats!r}"
+            )
+        self.models = ModelRegistry()
+        # the tables on the session's device, once: every call runs on these
+        self.database = upload_database(self.tables, self.device)
+
+    # -- registration --------------------------------------------------------
+
+    def register_model(self, name: str, pipe_or_path):
+        """Thin alias for :meth:`ModelRegistry.publish` (returns the
+        pipeline)."""
+        return self.models.publish(name, pipe_or_path).pipeline
+
+    # -- query construction --------------------------------------------------
+
+    def sql(self, text: str) -> "Query":
+        """Parse PREDICT-statement SQL into a session-bound :class:`Query`."""
+        q = Query(self, parse_spec(text))
+        _ = q.ir  # build eagerly: unknown models/tables/columns fail here
+        return q
+
+    def table(self, name: str) -> "QueryBuilder":
+        """Start a fluent query over ``name`` (the fact table)."""
+        if name not in self.tables:
+            raise UnknownTableError(
+                f"unknown table '{name}' — known tables: {sorted(self.tables)}"
+            )
+        return QueryBuilder(self, QuerySpec(base=name))
+
+    # -- not ported yet ------------------------------------------------------
+
+    @property
+    def server(self):
+        raise NotImplementedError(SERVING_NOT_PORTED)
+
+    def flush(self):
+        raise NotImplementedError(SERVING_NOT_PORTED)
+
+    def recover(self) -> dict:
+        raise NotImplementedError(f"registry recovery {PERSISTENCE_NOT_PORTED}")
+
+    # -- accounting ----------------------------------------------------------
+
+    def cache_stats(self) -> dict:
+        """The compiled-plan cache's snapshot (``hits``/``misses``/
+        ``evictions``) and the model registry's under ``"models"``."""
+        out = PLAN_CACHE_STATS.snapshot()
+        out["models"] = self.models.snapshot()
+        return out
+
+    def close(self) -> None:
+        """Nothing to release yet: no server, store or fault plan."""
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class Query:
+    """A prediction query bound to a session (unified IR + parameters)."""
+
+    def __init__(self, session: Session, spec: QuerySpec):
+        self._session = session
+        self._spec = spec
+        self._ir: Optional[PredictionQuery] = None
+
+    @property
+    def session(self) -> Session:
+        return self._session
+
+    @property
+    def spec(self) -> QuerySpec:
+        return self._spec
+
+    @property
+    def ir(self) -> PredictionQuery:
+        """The unified IR (built once; SQL text and the fluent builder lower
+        through the same spec -> IR path, so equal queries hash equal)."""
+        if self._ir is None:
+            self._ir = build_prediction_query(
+                self._spec, self._session.models, self._session.tables,
+                self._session.stats,
+            )
+        return self._ir
+
+    def fingerprint(self) -> str:
+        return self.ir.fingerprint()
+
+    def param_names(self) -> frozenset[str]:
+        return frozenset(self.ir.params())
+
+    def prepare(
+        self,
+        *,
+        strategy=None,
+        transform: Optional[str] = None,
+        params: Optional[dict[str, Any]] = None,
+        options: Optional[OptimizerOptions] = None,
+        verify: Union[str, bool, None] = None,
+    ) -> "PreparedQuery":
+        """Run the optimizer once and compile; returns a reusable handle.
+
+        ``transform`` forces a runtime (the port lowers ``"dnn"``; ``None``
+        resolves to ``"none"`` as in the reference, which raises until split
+        lowering lands); ``options`` overrides the full optimizer
+        configuration. All ``:param`` placeholders must be bound via
+        ``params`` (re-bindable later with :meth:`PreparedQuery.bind`).
+        ``strategy`` and ``verify`` raise ``NotImplementedError`` naming
+        their ROADMAP items."""
+        if verify is not None:
+            raise NotImplementedError(VERIFY_NOT_PORTED)
+        opts = options or self._session.options or OptimizerOptions()
+        if transform is not None:
+            opts = dataclasses.replace(opts, transform=transform)
+        declared = self.param_names()
+        bound = dict(params or {})
+        check_params(declared, bound, context="query")
+        plan, report = RavenOptimizer(strategy=strategy, options=opts).optimize(self.ir)
+        return PreparedQuery(self, plan, report, opts, bound)
+
+
+class QueryBuilder(Query):
+    """Fluent construction of the same :class:`QuerySpec` the SQL parser
+    produces (so builder and SQL queries are fingerprint-identical)."""
+
+    def _with(self, **changes) -> "QueryBuilder":
+        return QueryBuilder(
+            self._session, dataclasses.replace(self._spec, **changes)
+        )
+
+    def join(
+        self, dim_table: str, on: Union[str, tuple[str, str]]
+    ) -> "QueryBuilder":
+        """FK-join a dimension table; ``on`` is a shared key name or a
+        ``(fact_col, dim_col)`` pair."""
+        a, b = (on, on) if isinstance(on, str) else on
+        return self._with(joins=[*self._spec.joins, (dim_table, a, b)])
+
+    def predict(self, model: str) -> "QueryBuilder":
+        """Apply a registered model (its outputs become columns
+        ``score``/``pred``)."""
+        return self._with(model=model)
+
+    def where(
+        self, cond: str, op: Optional[str] = None, value: Any = None
+    ) -> "QueryBuilder":
+        """Add one conjunct: ``where("score >= :t")`` or
+        ``where("score", ">=", 0.6)``."""
+        if op is None:
+            pred = parse_condition(cond)
+        else:
+            if isinstance(value, Expr):
+                v = value
+            elif isinstance(value, str):
+                # same lowering as the SQL parser: ':name' is a parameter,
+                # any other string a literal
+                v = Param(value[1:]) if value.startswith(":") else Const(value)
+            else:
+                v = Const(float(value))
+            pred = (cond, canonical_op(op), v)
+        return self._with(preds=[*self._spec.preds, pred])
+
+    def select(self, *items: str) -> "QueryBuilder":
+        """Set the select list, e.g. ``select("COUNT(*)", "AVG(score)")``;
+        the default (no select) is ``*``."""
+        parsed = [it for s in items for it in parse_select_items(s)]
+        return self._with(items=parsed)
+
+
+class PreparedQuery:
+    """An optimized + compiled prediction query.
+
+    ``plan``/``report`` are the optimizer's output; ``compiled`` the cached
+    stage graph. Call it for one-shot execution, :meth:`bind` to re-bind
+    ``:param`` values without re-optimizing or re-compiling."""
+
+    def __init__(
+        self,
+        query: Query,
+        plan: PhysicalPlan,
+        report: OptimizationReport,
+        options: OptimizerOptions,
+        params: dict[str, Any],
+    ):
+        self.query = query
+        self.plan = plan
+        self.report = report
+        self.options = options
+        self.params = dict(params)
+        self.compiled = compile_plan(plan)
+        self.param_names = query.param_names()
+
+    @property
+    def fingerprint(self) -> str:
+        """Content hash of the physical plan (the compiled-plan cache key)."""
+        return self.compiled.fingerprint
+
+    # -- parameter binding ---------------------------------------------------
+
+    def bind(self, _params: Optional[dict[str, Any]] = None, **kw) -> "PreparedQuery":
+        """Re-bind ``:param`` values: ``prep.bind(t=0.9)``. The optimized
+        plan, its fingerprint and the compiled stages are reused as they
+        are: the value rides in as a runtime input."""
+        new = {**(_params or {}), **kw}
+        check_params(self.param_names, new, require_all=False, context="query")
+        self.params.update(new)
+        return self
+
+    # -- one-shot execution --------------------------------------------------
+
+    def __call__(
+        self, batch: Optional[dict[str, np.ndarray]] = None
+    ) -> dict[str, np.ndarray]:
+        """Execute once against the session's tables on its device
+        (``batch`` replaces the fact table's rows, and is the only upload)
+        and return compacted numpy columns."""
+        session = self.query.session
+        db = session.database
+        if batch is not None:
+            fact = self._fact_table()
+            scan_cols = {
+                c for s in walk_plan(self.plan)
+                if isinstance(s, Scan) and s.table == fact
+                for c in s.columns
+            }
+            missing = sorted(scan_cols - set(batch))
+            if missing:
+                raise RavenError(
+                    f"batch for fact table '{fact}' is missing columns "
+                    f"{missing}"
+                )
+            db = db.replace(fact, batch)
+        res = self.compiled.run(
+            db, params=self.params if self.param_names else None,
+            device=session.device,
+        )
+        return res.table.to_numpy(compact=True)
+
+    def _fact_table(self) -> str:
+        base = self.query.spec.base
+        if base is not None:
+            return base
+        return next(s.table for s in walk_plan(self.plan) if isinstance(s, Scan))
+
+    # -- not ported yet ------------------------------------------------------
+
+    def serve(self, *args, **kwargs) -> "PreparedQuery":
+        raise NotImplementedError(SERVING_NOT_PORTED)
+
+    def submit(self, *args, **kwargs):
+        raise NotImplementedError(SERVING_NOT_PORTED)
+
+    # -- introspection -------------------------------------------------------
+
+    def explain(self) -> str:
+        """Pretty-print the logical -> physical story: the query as written,
+        the optimized plan (chosen runtimes, pushed projections, rewritten
+        thresholds), the optimizer's notes and the stage graph."""
+        session = self.query.session
+        lines = [f"PreparedQuery  fingerprint={self.fingerprint[:16]}…"]
+        if self.param_names:
+            binds = ", ".join(
+                f":{k} = {self.params[k]!r}" if k in self.params else f":{k} (unbound)"
+                for k in sorted(self.param_names)
+            )
+            lines.append(f"params: {binds}")
+        lines.append("-- resolved options " + "-" * 35)
+        lines.append(f"connect: {session.connect_options.describe()}")
+        lines.append(f"device:  {session.device}")
+        model_ref = self.query.spec.model
+        if model_ref is not None:
+            name = str(model_ref).partition("@")[0]
+            rec = session.models.snapshot().get(name)
+            if rec is not None:
+                lines.append("-- model lifecycle " + "-" * 36)
+                lines.append(f"{name}: live=v{rec['live']}")
+        lines.append("-- logical plan (as written) " + "-" * 26)
+        lines.append(format_logical_plan(self.query.ir.plan))
+        lines.append("-- physical plan (optimized) " + "-" * 26)
+        lines.append(format_physical_plan(self.plan))
+        lines.append("-- chosen runtimes " + "-" * 36)
+        for i, t in sorted(self.report.transforms.items()):
+            lines.append(f"predict[{i}] -> {t}")
+        if self.report.relational:
+            lines.append("-- runtime placement (relational ops) " + "-" * 18)
+            for label, r in self.report.relational:
+                lines.append(f"  {label}")
+                lines.append(f"    -> {r}")
+        scans = [s for s in walk_plan(self.plan) if isinstance(s, Scan)]
+        if scans:
+            lines.append("-- pushed projections " + "-" * 33)
+            for s in scans:
+                total = len(session.tables.get(s.table, s.columns))
+                lines.append(
+                    f"{s.table}: reads {len(s.columns)}/{total} columns"
+                )
+        if self.report.notes:
+            lines.append("-- optimizer notes " + "-" * 36)
+            for n in self.report.notes:
+                lines.append(f"* {n}")
+        stages = self.compiled.stages
+        lines.append(f"-- stage graph: {len(stages)} pure stage(s) " + "-" * 20)
+        for st in stages:
+            lines.append(f"[{st.index}] {st.kind}: {st.label}  "
+                         f"fingerprint={st.fingerprint[:12]}…")
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return (
+            f"PreparedQuery(fingerprint={self.fingerprint[:12]}…, "
+            f"params={self.params})"
+        )

@@ -305,23 +305,19 @@ class TensorProgram(nn.Module):
                 from repro_torch.kernels import ops
                 from repro_torch.kernels.ref import featurize_ref
 
-                num = (
-                    torch.cat([vals[c].to(torch.float32) for c in info["numeric"]], 1)
-                    if info["numeric"]
-                    else torch.zeros((n, 0), dtype=torch.float32, device=dev)
-                )
-                cat = (
-                    torch.cat([vals[c].to(torch.int32) for c in info["categorical"]], 1)
-                    if info["categorical"]
-                    else torch.zeros((n, 0), dtype=torch.int32, device=dev)
-                )
-                args = (num, cat, b[info["offset"]], b[info["scale"]],
-                        b[info["cat_values"]], info["segments"])
+                # the columns as they lie: the kernel reads them in place
+                num = [vals[c] for c in info["numeric"]]
+                cat = [vals[c] for c in info["categorical"]]
+                consts = (b[info["offset"]], b[info["scale"]],
+                          b[info["cat_values"]], info["segments"])
                 if self.use_kernels is False:
-                    vals[info["out"]] = featurize_ref(*args)
+                    vals[info["out"]] = featurize_ref(
+                        ops.stack_columns(num, n, torch.float32, dev),
+                        ops.stack_columns(cat, n, torch.int32, dev), *consts,
+                    )
                 else:
                     vals[info["out"]] = ops.featurize_op(
-                        *args, val_col=b[info["val_col"]]
+                        num, cat, *consts, val_col=b[info["val_col"]]
                     )
             elif kind == "concat":
                 vals[node.outputs[0]] = torch.cat(

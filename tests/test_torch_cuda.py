@@ -59,6 +59,82 @@ def test_featurize_kernel_bitwise(dev, n_num, segs, N):
     assert got.is_cuda and np.array_equal(_bits(got), _bits(want))
 
 
+def _featurize_columns(rng, N, n_num, segs, dev):
+    """In-place inputs of every layout the kernel reads: numeric columns as
+    1-D tensors, one a stride-2 view, and two of them as one (N, 2) view of
+    a wider tensor; categorical codes as 1-D int32 tensors, one a column of
+    an (N, 3) tensor (stride 3), and one int64 (converted on its own)."""
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+    wide = t(rng.normal(size=(N, 5)), torch.float32)
+    num = [wide[:, 3:5]] + [t(rng.normal(size=N), torch.float32) for _ in range(n_num - 3)]
+    num.append(t(rng.normal(size=2 * N), torch.float32)[::2])
+    codes = [rng.integers(-1, s, N) for s in segs]
+    cat = [t(c, torch.int32) for c in codes[2:]]
+    if len(segs) >= 2:
+        block = t(np.stack([codes[0], codes[0] + 1, codes[0] + 2], 1), torch.int32)
+        cat = [block[:, 0], t(codes[1], torch.int64)] + cat
+    offset = t(rng.normal(size=n_num), torch.float32)
+    scale = t(rng.uniform(0.5, 2.0, size=n_num), torch.float32)
+    values = t(np.concatenate([np.arange(s) for s in segs]), torch.int32)
+    starts = np.cumsum([0] + list(segs))[:-1]
+    segments = tuple((int(s), int(l)) for s, l in zip(starts, segs))
+    return num, cat, offset, scale, values, segments
+
+
+def _featurize_plain(num, cat, offset, scale, values, segments):
+    N = num[0].shape[0]
+    return ref.featurize_ref(ops.stack_columns(num, N, torch.float32),
+                             ops.stack_columns(cat, N, torch.int32),
+                             offset, scale, values, segments)
+
+
+@pytest.mark.parametrize("N,n_num,segs", [
+    (100_000, 9, (3, 2, 4, 3, 2, 2, 3, 3, 4, 2, 3, 4, 3, 2)),  # the hospital query's
+    (8192, 8, (198,) * 19 + (195,)),  # Expedia's width: 3,965 columns, a 4-row tile
+    (300, 4, (9000, 6000)),  # too wide for a tile: the stream path
+    (1001, 70, (2,) * 70),  # 140 inputs: four launches of disjoint column ranges
+])
+def test_featurize_kernel_reads_columns_in_place(dev, N, n_num, segs):
+    from repro_torch.kernels.featurize import FEAT_MAX_COLS, featurize_launches
+
+    rng = np.random.default_rng(N)
+    args = _featurize_columns(rng, N, n_num, segs, dev)
+    before = LAUNCHES["featurize"]
+    got = ops.featurize_op(*args)
+    launches = 1 if n_num + len(segs) <= FEAT_MAX_COLS else len(featurize_launches(n_num, segs))
+    assert LAUNCHES["featurize"] == before + launches
+    want = _featurize_plain(*args)
+    assert got.shape == (N, n_num + sum(segs))
+    assert np.array_equal(_bits(got), _bits(want))
+    assert np.array_equal(_bits(ops.featurize_op(*args)), _bits(got))
+
+
+def test_featurize_kernel_replays_in_a_cuda_graph(dev):
+    """The launch does no host work a capture would miss: replays of a
+    captured call, beside eager calls, equal the plain version. ``val_col``
+    is made before the capture, as a compiled program holds it."""
+    from repro_torch.kernels.featurize import segment_columns
+
+    rng = np.random.default_rng(4)
+    args = _featurize_columns(rng, 50_000, 9, (3, 2, 4, 3), dev)
+    val_col = segment_columns(args[-1], dev)
+    want = _featurize_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.featurize_op(*args, val_col=val_col)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.featurize_op(*args, val_col=val_col) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        eager = ops.featurize_op(*args, val_col=val_col)
+        torch.cuda.synchronize()
+        for got in (*outs, eager):
+            assert np.array_equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize("T,depth", [(1, 3), (20, 5), (150, 5)])
 def test_tree_gemm_kernel_within_1e5(dev, T, depth):
     from repro_torch.data.datasets import make_hospital
