@@ -25,6 +25,12 @@ entry points a user calls. Two plans make up that path:
   ``segment_agg``), as a global fold and segmented into 6 requests, through
   ``compile_plan`` → ``CompiledPlan.run``;
 
+The transforms phase prepares the same hospital query under the other two
+runtimes, ``transform="none"`` (the interpreted ML runtime behind an MLUdf
+host boundary) and ``"sql"`` (MLtoSQL: the model as CASE expressions), and
+runs a split plan (a pipeline with a host-only op, lowered to
+``TensorOp → MLUdf → TensorOp``: ``featurize`` before the host boundary,
+``tree_gemm`` and ``segment_agg`` after it);
 and a third path serves an LM through ``build_model(get_config(...)).init``
 → ``ServeEngine.submit`` → ``ServeEngine.run``:
 
@@ -75,14 +81,34 @@ In order it
    be above 0 on the plan that reaches its kernel; and profiles one more
    hospital request (the card's busy time and idle share, one
    ``featurize`` kernel and no ``torch.cat`` copy kernel in it);
-5. zeroes the counts again and serves the LM workload, printing prefill
+5. the transforms phase: the same query prepared through the front door
+   as ``transform="none"`` (the interpreted runtime behind one MLUdf host
+   boundary: ``pure, host, pure``), ``"sql"`` (the model as CASE
+   expressions, one pure stage) and ``"dnn"``; for each, its stage kinds,
+   ``explain()``'s placement, the request times (median and max over the
+   three bindings) and the card's busy time and idle share of one profiled
+   request, with the counts zeroed before and read after (``segment_agg``
+   in every one, ``featurize`` and ``tree_gemm`` in ``dnn`` only). COUNT
+   equals the host oracle's under ``none`` and ``dnn`` (AVG within rtol
+   1e-5); under ``sql`` COUNT and AVG equal the same prepared query run by
+   the port on the CPU, and ``SELECT *`` under ``sql`` flips under 0.8% of
+   the interpreter's labels. Then the split plan: the pipeline with a
+   ``python_udf`` over its feature block before the model, lowered to
+   ``TensorOp → MLUdf → TensorOp`` (``featurize`` before the host boundary,
+   ``tree_gemm`` and ``segment_agg`` after it), its answers against the
+   host interpreter, its request time with the host boundary's parts (sync,
+   copy down, interpreter, copy up), no cut column in its result and its
+   scores within rtol 1e-5 of the interpreter's float64 scores;
+6. zeroes the counts again and serves the LM workload, printing prefill
    time per admission, the median decode tick, time to first token and
    generated tokens per second; reads the counts (40 ``flash_attention``
    launches an admission, 40 ``decode_attention`` launches a tick); then
    serves it once more with the two attention wrappers swapped for their
    plain versions and holds the served tokens equal, step by step, up to
    the first near-tie between a step's top two logits;
-6. prints the kernel table as one JSON line and, last, the device line
+7. prints the kernel table as one JSON line (``launches``: the sum over
+   every counted run of the main path: the hospital query and dashboard
+   plan, the transforms phase, the LM serving run) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -91,6 +117,7 @@ when the rest of the repository is not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -191,10 +218,12 @@ def hospital_case(train_rows, infer_rows, n_estimators, max_depth, seed=0):
     )
     train_s = time.perf_counter() - t0
     cols = infer.joined_columns()
-    score = run_pipeline(pipe, {n: cols[n] for n in pipe.input_names()})[pipe.outputs[0]]
+    out = run_pipeline(pipe, {n: cols[n] for n in pipe.input_names()})
     return {
         "pipe": pipe, "tables": infer.tables, "train_s": train_s,
-        "score": np.asarray(score, np.float64), "asthma": np.asarray(cols["asthma"]),
+        "score": np.asarray(out[pipe.outputs[0]], np.float64).reshape(-1),
+        "label": np.asarray(out[pipe.outputs[1]]).reshape(-1),
+        "asthma": np.asarray(cols["asthma"]),
     }
 
 
@@ -1096,6 +1125,18 @@ def profile_lm(model, params, requests, dev, tick_ms: float) -> None:
           f"{1 - parts['decode tick'] / tick_ms!r}", flush=True)
 
 
+def profile_request(prep, t: float) -> tuple[dict[str, tuple[int, float]], float]:
+    """One request of a prepared hospital query under torch.profiler: the
+    device's kernels and copies (name -> (launches, ms)) and the request's
+    host time in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, wall = run_hospital(prep, t)
+    return device_ms_by_kernel(prof), wall
+
+
 # the request's card busy time while two torch.cat copies built featurize's
 # inputs (chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W)
 CAT_COPIES_HOSPITAL_BUSY_MS = 0.415
@@ -1109,12 +1150,7 @@ def profile_hospital(prep, t: float, request_ms: float) -> None:
     request must run one ``featurize`` kernel and no ``torch.cat`` copy
     (``CatArrayBatchedCopy``): the kernel reads the table's columns in
     place."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_hospital(prep, t)
-    kernels = device_ms_by_kernel(prof)
+    kernels, wall = profile_request(prep, t)
     busy = sum(ms for _, ms in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(f"profile hospital request: host {wall!r} ms under the profiler, card busy "
@@ -1129,6 +1165,217 @@ def profile_hospital(prep, t: float, request_ms: float) -> None:
     check(feat == [1], f"featurize kernels in the request: {feat}")
     cats = [name for name in kernels if "CatArrayBatchedCopy" in name]
     check(not cats, f"torch.cat copies in the request: {cats}")
+
+
+# ---------------------------------------------------------------------------
+# The three runtimes of the hospital query, and the split plan
+# ---------------------------------------------------------------------------
+
+TRANSFORMS = ("none", "sql", "dnn")
+# no ``asthma = 1`` here: predicate pruning would make asthma a constant
+# node, which the fused featurize step does not take, and the python_udf
+# keeps projection pushdown from removing its one-hot (as in the reference)
+SPLIT_QUERY = ("SELECT COUNT(*), AVG(score) FROM PREDICT(model='s', data=patients) AS p "
+               "WHERE score >= :t")
+SELECT_ALL = "SELECT * FROM PREDICT(model='{}', data=patients) AS p"
+SQL_LABEL_FLIPS = 0.008  # the reference's bound (tests/test_transforms.py)
+
+
+def host_udf(X):
+    """The split plan's host-only op over the feature block: elementwise
+    and float32-exact (the reference split test's)."""
+    return (X.astype(np.float32) * np.float32(0.5)) + np.float32(0.25)
+
+
+host_udf.__fingerprint_token__ = "chip-smoke-split-udf-v1"
+
+
+def split_pipeline(pipe):
+    """The hospital pipeline with a ``python_udf`` over its feature block
+    before the model: the tensor compiler cannot take it, so MLtoDNN cuts
+    the pipeline around it (``TensorOp → MLUdf → TensorOp``)."""
+    from repro_torch.ml.pipeline import PipelineNode
+
+    nodes = list(pipe.nodes)
+    mi = next(i for i, nd in enumerate(nodes) if nd.op in ("tree_ensemble", "linear"))
+    udf = PipelineNode("python_udf", [nodes[mi].inputs[0]], ["features_h"], {"fn": host_udf})
+    model = dataclasses.replace(nodes[mi], inputs=["features_h", *nodes[mi].inputs[1:]])
+    return dataclasses.replace(pipe, nodes=[*nodes[:mi], udf, model, *nodes[mi + 1:]])
+
+
+def placement(prep) -> list[str]:
+    """The lines of ``explain()``'s per-op runtime placement."""
+    lines = prep.explain().splitlines()
+    head = "-- runtime placement (per pipeline op)"
+    i = next((j for j, line in enumerate(lines) if line.startswith(head)), None)
+    check(i is not None, "explain() shows no runtime placement")
+    out = []
+    for line in lines[i + 1:]:
+        if line.startswith("--"):
+            break
+        out.append(line.strip())
+    return out
+
+
+def drive_counted(prep, thresholds) -> tuple[list, list[float], dict[str, int]]:
+    """One request for each binding with every launch count zeroed just
+    before: the (COUNT, AVG) answers, the request times and the counts."""
+    from repro_torch.kernels import _build
+
+    for name in KERNELS:
+        _build.LAUNCHES[name] = 0
+    answers, times = [], []
+    for t in thresholds:
+        count, avg, ms = run_hospital(prep, t)
+        answers.append((count, avg))
+        times.append(ms)
+    return answers, times, dict(_build.LAUNCHES)
+
+
+def host_boundary(prep):
+    """The prepared plan's host stage (its MLUdf boundary), or None."""
+    return next((st for st in prep.compiled.stages if st.kind == "host"), None)
+
+
+def report_boundary(stage, before: dict, n: int, request_ms: float, label: str,
+                    smi: str) -> None:
+    """A host boundary's time a request by part, from ``Stage.host_s``
+    summed over the ``n`` requests since ``before``, and its share of the
+    median request."""
+    parts = {k: 1e3 * (stage.host_s[k] - before.get(k, 0.0)) / n for k in stage.host_s}
+    total = sum(parts.values())
+    print(f"transforms [{smi}] {label} host boundary, ms a request: sync {parts['sync']!r}, "
+          f"copy down and compaction {parts['down']!r}, interpreter {parts['udf']!r}, "
+          f"copy up {parts['up']!r}: {total!r} of the median request {request_ms!r} "
+          f"({total / request_ms!r})", flush=True)
+
+
+def card_busy(prep, t: float, request_ms: float, label: str, smi: str) -> None:
+    """The card's busy time in one profiled request and its idle share of
+    the unprofiled median request."""
+    kernels, wall = profile_request(prep, t)
+    busy = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"transforms [{smi}] {label}: profiled request host {wall!r} ms, card busy "
+          f"{busy!r} ms in {sum(c for c, _ in kernels.values())} kernels and copies; idle "
+          f"share of the median request {request_ms!r} ms: {1 - busy / request_ms!r}; top: "
+          + "; ".join(f"{name[:50]} ({c}, {ms:.4f})" for name, (c, ms) in top), flush=True)
+
+
+def transforms_phase(case, session, thresholds, smi: str) -> dict[str, int]:
+    """The hospital query prepared through the front door under each
+    runtime on the card (``none``: the interpreter behind one MLUdf;
+    ``sql``: the model as CASE expressions; ``dnn``: one tensor program),
+    and the split plan of a pipeline with a host-only op. Each is driven
+    with the launch counts zeroed just before it; returns the counts summed
+    over all of them."""
+    import repro_torch as raven
+    from repro_torch.ml import run_pipeline
+
+    total = {name: 0 for name in KERNELS}
+    n = len(thresholds)
+    query = session.sql(QUERY)
+    cpu = None
+    for transform in TRANSFORMS:
+        t0 = time.perf_counter()
+        prep = query.prepare(transform=transform, params={"t": thresholds[1]})
+        prep_s = time.perf_counter() - t0
+        kinds = [st.kind for st in prep.compiled.stages]
+        want_kinds = ["pure", "host", "pure"] if transform == "none" else ["pure"]
+        check(kinds == want_kinds, (transform, kinds))
+        t0 = time.perf_counter()
+        run_hospital(prep, thresholds[1])  # first call: constants go to the card
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        boundary = host_boundary(prep)
+        before = dict(boundary.host_s) if boundary is not None else {}
+        answers, times, counts = drive_counted(prep, thresholds)
+        for name in KERNELS:
+            total[name] += counts[name]
+        if transform == "sql":
+            # the same prepared query run by the port on the CPU
+            cpu = raven.connect(case["tables"], stats="auto", device="cpu")
+            cpu.register_model("m", case["pipe"])
+            on_cpu = cpu.sql(QUERY).prepare(transform="sql", params={"t": thresholds[1]})
+            wants = [run_hospital(on_cpu, t)[:2] for t in thresholds]
+        else:
+            wants = [hospital_oracle(case, t) for t in thresholds]
+        for (count, avg), (want_count, want_avg), t in zip(answers, wants, thresholds):
+            print(f"transforms [{smi}] {transform} t={t!r}: COUNT={count} AVG={avg!r}; "
+                  f"{'the CPU run' if transform == 'sql' else 'host'}: COUNT={want_count} "
+                  f"AVG={want_avg!r}", flush=True)
+            check(count == want_count > 0, (transform, t, count, want_count))
+            check(abs(avg - want_avg) <= 1e-5 * abs(want_avg), (transform, t, avg, want_avg))
+        model_kernels = n if transform == "dnn" else 0
+        check(counts["segment_agg"] == n and counts["featurize"] == counts["tree_gemm"]
+              == model_kernels and counts["gather_join"] == 0, (transform, counts))
+        stats = {"transform": transform, "stages": kinds, "placement": placement(prep),
+                 "prepare_s": prep_s, "first_request_ms": first_ms,
+                 "request_ms": times, "request_ms_median": float(np.median(times)),
+                 "request_ms_max": max(times), "launches": counts}
+        if transform == "sql":
+            from repro_torch.relational.engine import Project, walk_plan
+            from repro_torch.relational.expr import expr_size
+
+            proj = next(p for p in walk_plan(prep.plan) if isinstance(p, Project))
+            stats["expression_nodes"] = sum(expr_size(e) for e in proj.exprs.values())
+        print(f"transforms [{smi}]:", json.dumps(stats), flush=True)
+        if boundary is not None:
+            report_boundary(boundary, before, n, stats["request_ms_median"], transform, smi)
+        card_busy(prep, thresholds[1], stats["request_ms_median"], transform, smi)
+
+    # MLtoSQL's labels against the interpreter's, every row
+    t0 = time.perf_counter()
+    out = session.sql(SELECT_ALL.format("m")).prepare(transform="sql")()
+    flips = float(np.mean(out["pred"].reshape(-1) != case["label"]))
+    print(f"transforms [{smi}] sql: labels of {len(case['label'])} rows differ from the "
+          f"host interpreter's on a share of {flips!r} (bound {SQL_LABEL_FLIPS}); "
+          f"SELECT * in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(len(out["pred"]) == len(case["label"]) and flips < SQL_LABEL_FLIPS, flips)
+
+    # the split plan: featurize before the host boundary, tree_gemm and
+    # segment_agg after it, over every row
+    split = split_pipeline(case["pipe"])
+    session.register_model("s", split)
+    cols = case["tables"]["patients"]
+    host = run_pipeline(split, {c: cols[c] for c in split.input_names()})
+    score = np.asarray(host["score"], np.float64).reshape(-1)
+    s_thresholds = gap_thresholds(score, (0.4, 0.5, 0.6))
+    t0 = time.perf_counter()
+    prep = session.sql(SPLIT_QUERY).prepare(transform="dnn", params={"t": s_thresholds[1]})
+    prep_s = time.perf_counter() - t0
+    kinds = [st.kind for st in prep.compiled.stages]
+    check(kinds == ["pure", "host", "pure"], f"split plan stages {kinds}")
+    run_hospital(prep, s_thresholds[1])
+    boundary = host_boundary(prep)
+    before = dict(boundary.host_s)
+    answers, times, counts = drive_counted(prep, s_thresholds)
+    for name in KERNELS:
+        total[name] += counts[name]
+    for (count, avg), t in zip(answers, s_thresholds):
+        want_count, want_avg = int((score >= t).sum()), float(score[score >= t].mean())
+        print(f"transforms [{smi}] split t={t!r}: COUNT={count} AVG={avg!r}; host: "
+              f"COUNT={want_count} AVG={want_avg!r}", flush=True)
+        check(count == want_count > 0, ("split", t, count, want_count))
+        check(abs(avg - want_avg) <= 1e-5 * abs(want_avg), ("split", t, avg, want_avg))
+    check(counts["featurize"] == counts["tree_gemm"] == counts["segment_agg"] == n
+          and counts["gather_join"] == 0, f"split plan launches {counts}")
+    median = float(np.median(times))
+    stats = {"transform": "dnn, split", "stages": kinds, "placement": placement(prep),
+             "notes": prep.report.notes, "prepare_s": prep_s, "request_ms": times,
+             "request_ms_median": median, "request_ms_max": max(times), "launches": counts}
+    print(f"transforms [{smi}]:", json.dumps(stats), flush=True)
+    report_boundary(boundary, before, n, median, "split", smi)
+    card_busy(prep, s_thresholds[1], median, "split", smi)
+    out = session.sql(SELECT_ALL.format("s")).prepare(transform="dnn")()
+    check(not [c for c in out if c.startswith("__pv_")], f"cut columns in {sorted(out)}")
+    check(out["score"].shape == score.shape, out["score"].shape)
+    err = float(np.abs(out["score"] - score).max())
+    rel = float((np.abs(out["score"] - score) / np.abs(score)).max())
+    print(f"transforms [{smi}] split: scores of {len(score)} rows within {err!r} "
+          f"(relative {rel!r}) of the host interpreter's float64 scores "
+          f"(tolerance rtol 1e-5)", flush=True)
+    check(np.allclose(out["score"], score, rtol=1e-5, atol=0), (err, rel))
+    return total
 
 
 def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
@@ -1243,6 +1490,10 @@ def main() -> int:
           f"a relational kernel was not launched: {counts}")
     print("dashboard: global and segmented bitwise vs host and on vs off", flush=True)
     profile_hospital(prep, thresholds[1], float(np.median(request_ms)))
+    transforms = transforms_phase(case, session, thresholds, smi)
+    print("launches of the transforms phase:", transforms, flush=True)
+    for name in KERNELS:
+        counts[name] += transforms[name]
 
     # the LM serving path, counted
     for name in KERNELS:

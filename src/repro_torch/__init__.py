@@ -16,7 +16,7 @@ reference package, and runs on the card unless the caller passes
     prep = db.sql(
         "SELECT COUNT(*), AVG(score) FROM PREDICT(model='m', data=patients) "
         "WHERE score >= :t"
-    ).prepare(transform="dnn", params={"t": 0.5})
+    ).prepare(transform="dnn", params={"t": 0.5})   # or "sql"; default "none"
     print(prep.explain())
     out = prep()                 # one-shot
     prep.bind(t=0.8)             # same plan, no new compile

@@ -1,1 +1,1 @@
-"""Symbolic rewrite rules and the MLtoDNN lowering rule."""
+"""Symbolic rewrite rules and the MLtoDNN and MLtoSQL lowering rules."""

@@ -1,9 +1,10 @@
-"""StageGraph: the physical stage IR of the execution layer (pure stages).
+"""StageGraph: the physical stage IR of the execution layer.
 
 Lowering a physical plan produces a graph of :class:`Stage` nodes, each
 carrying:
 
-  * its operator slice of the plan (a maximal pure segment),
+  * its operator slice of the plan (a maximal pure segment, or one MLUdf
+    host boundary),
   * its output columns,
   * a canonical per-stage content fingerprint (chained through upstream
     stages, so a stage's hash identifies *this stage of this plan*),
@@ -14,10 +15,12 @@ stages: ``valid`` is the row-validity mask that makes padded serving exact,
 and ``seg`` is an optional per-row request-segment id that lets aggregates
 fold per request instead of per batch.
 
-This slice of the port runs pure stages only: a plan holding an ``MLUdf``
-host boundary (split lowering, or no lowering at all) raises
-``NotImplementedError``. PyTorch runs eagerly, so a stage is its composed
-``env -> state`` function, called directly; there is no tracing to count.
+A pure stage runs on the plan's device; PyTorch runs eagerly, so a stage
+is its composed ``env -> state`` function, called directly, with no
+tracing to count. A host stage is the interpreted ML runtime: the rows
+cross to the host once (one synchronisation, a copy down, compaction to
+the valid rows), the numpy pipeline runs over them, and its output goes
+back up as the ``__mid__`` pseudo-table the next pure stage starts from.
 The stage schema the reference's verifier and serving layer read (tables
 and columns read, ``:param`` slots) comes with those modules.
 """
@@ -27,10 +30,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.relational.expr import eval_expr
-from repro_torch.relational.table import Table
+from repro_torch.relational.table import Table, to_device
 
 # -- execution-environment keys ---------------------------------------------
 
@@ -52,13 +56,13 @@ SEG_SLOTS_KEY = "__seg_slots__"
 # runtime scalar: how many of the segment slots are real requests
 SEG_COUNT_KEY = "__seg_count__"
 
+# pseudo-table carrying a host boundary's output into the next pure stage
+MID_TABLE = "__mid__"
+MID_VALID = "__valid__"
+MID_SEG = "__seg__"
+
 # state threaded through stages: (columns, valid-mask, segment-ids-or-None)
 State = tuple[dict[str, torch.Tensor], torch.Tensor, Optional[torch.Tensor]]
-
-# where the unported host-boundary execution is queued
-HOST_BOUNDARY_ITEM = (
-    "ROADMAP.md Queue 1 (split lowering: MLUdf / run_udf / host_step)"
-)
 
 
 def seg_bucket(k: int, min_bucket: int = 4) -> int:
@@ -140,19 +144,23 @@ def pure_step(plan, inner: Optional[Callable[[dict], State]]) -> Callable[[dict]
         return fn
 
     if isinstance(plan, Filter):
-        def fn(env, _plan=plan):
+        consts: dict = {}  # the expression's constants, once per device
+
+        def fn(env, _plan=plan, _consts=consts):
             cols, valid, seg = inner(env)
-            keep = eval_expr(_plan.expr, cols, env.get(PARAMS_KEY))
+            keep = eval_expr(_plan.expr, cols, env.get(PARAMS_KEY), consts=_consts)
             return cols, valid & keep.to(torch.bool), seg
         return fn
 
     if isinstance(plan, Project):
-        def fn(env, _plan=plan):
+        consts = {}
+
+        def fn(env, _plan=plan, _consts=consts):
             cols, valid, seg = inner(env)
             keep = _plan.keep if _plan.keep is not None else list(cols)
             out = {c: cols[c] for c in keep}
             for name, e in _plan.exprs.items():
-                out[name] = eval_expr(e, cols, env.get(PARAMS_KEY))
+                out[name] = eval_expr(e, cols, env.get(PARAMS_KEY), consts=_consts)
             return out, valid, seg
         return fn
 
@@ -252,6 +260,15 @@ def _masked_extremum(op, values, valid, counts, sid, ns):
     return torch.where(counts > 0, m, m.new_zeros(()))
 
 
+def _from_mid(env) -> State:
+    """Stage entry for operators sitting on top of a host boundary: the
+    boundary's output arrives re-wrapped as the ``__mid__`` pseudo-table."""
+    cols = dict(env[MID_TABLE])
+    valid = cols.pop(MID_VALID)
+    seg = cols.pop(MID_SEG, None)
+    return cols, valid, seg
+
+
 # ---------------------------------------------------------------------------
 # Stage / StageGraph
 # ---------------------------------------------------------------------------
@@ -259,18 +276,28 @@ def _masked_extremum(op, values, valid, counts, sid, ns):
 
 @dataclass
 class Stage:
-    """One node of the stage graph: a maximal pure operator segment.
-    ``fingerprint`` is a canonical content hash of this stage's operators
-    chained through every upstream stage's hash."""
+    """One node of the stage graph.
+
+    ``kind == "pure"`` stages own a maximal pure operator segment, run as
+    ``fn`` on the plan's device; ``kind == "host"`` stages own one MLUdf
+    boundary (``udf``) and run interpreted on the host. ``fingerprint`` is a
+    canonical content hash of this stage's operators chained through every
+    upstream stage's hash. A host stage sums its time by part in
+    ``host_s``: ``sync`` (waiting for the card), ``down`` (the copy to the
+    host and the compaction to valid rows), ``udf`` (the interpreter) and
+    ``up`` (the copy back to the device).
+    """
 
     index: int
-    kind: str  # "pure"
+    kind: str  # "pure" | "host"
     ops: list  # plan-node slice, innermost first
     fingerprint: str
     out_columns: tuple[str, ...]
-    fn: Optional[Callable[[dict], State]] = None  # raw env -> state
+    fn: Optional[Callable[[dict], State]] = None  # pure: raw env -> state
+    udf: Any = None  # host: the MLUdf plan node
     calls: int = 0
     total_s: float = 0.0
+    host_s: dict[str, float] = field(default_factory=dict)
 
     @property
     def label(self) -> str:
@@ -284,6 +311,15 @@ class StageGraph:
 
     plan: Any  # the PhysicalPlan this graph was lowered from
     stages: list[Stage]
+
+    @property
+    def is_pure(self) -> bool:
+        """One pure stage, no host boundary (MLtoSQL/MLtoDNN output)."""
+        return all(s.kind == "pure" for s in self.stages)
+
+    @property
+    def n_host_boundaries(self) -> int:
+        return sum(1 for s in self.stages if s.kind == "host")
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +357,8 @@ def _op_label(op) -> str:
         return f"Scan[{op.table}]"
     if name == "Join":
         return f"Join[{op.dim_table}]"
+    if name == "MLUdf":
+        return f"MLUdf[{op.pipeline.n_ops()}-op]"
     if name == "TensorOp":
         ins = getattr(op.fn, "__input_names__", None)
         arity = f"{len(ins)}→{len(op.output_names)}" if ins is not None else (
@@ -345,6 +383,7 @@ def _segment_out_cols(ops, in_cols: Optional[list[str]]) -> list[str]:
         Aggregate,
         Filter,
         Join,
+        MLUdf,
         Project,
         Scan,
         TensorOp,
@@ -361,7 +400,7 @@ def _segment_out_cols(ops, in_cols: Optional[list[str]]) -> list[str]:
         elif isinstance(op, Project):
             base = list(op.keep) if op.keep is not None else cur
             cur = base + [c for c in op.exprs if c not in base]
-        elif isinstance(op, TensorOp):
+        elif isinstance(op, (MLUdf, TensorOp)):
             cur = [c for c in cur if c not in op.consumes]
             cur = cur + [c for c in op.output_names if c not in cur]
         elif isinstance(op, Aggregate):
@@ -375,11 +414,11 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
     """Lower a physical plan into its :class:`StageGraph`.
 
     Each pure segment gets an ``env -> state`` callable composed from
-    :func:`pure_step`. Per-stage fingerprints chain: ``fp[i] = H(fp[i-1],
-    ops[i])`` with each operator hashed shallowly; identity-hashed
-    components land in ``pins``, which the caller keeps alive. A host
-    boundary raises ``NotImplementedError``: its execution is not ported
-    yet.
+    :func:`pure_step` (a pure stage after a host stage starts from the
+    ``__mid__`` pseudo-table); each host segment carries its MLUdf node.
+    Per-stage fingerprints chain: ``fp[i] = H(fp[i-1], ops[i])`` with each
+    operator hashed shallowly; identity-hashed components land in ``pins``,
+    which the caller keeps alive.
     """
     from repro_torch.core.fingerprint import fingerprint, node_fingerprint
     from repro_torch.kernels.ops import kernel_mode_token
@@ -390,12 +429,6 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
     prev_fp = ""
     prev_out: Optional[list[str]] = None
     for idx, (kind, ops) in enumerate(plan_segments(plan)):
-        if kind != "pure":
-            raise NotImplementedError(
-                "plans with an MLUdf host boundary are not ported yet: "
-                f"see {HOST_BOUNDARY_ITEM}; lower the pipeline whole with "
-                "transform='dnn'"
-            )
         stage_pins: list = []
         tokens = [node_fingerprint(op, pins=stage_pins) for op in ops]
         # the RAVEN_KERNELS mode changes the program run for Join /
@@ -408,16 +441,116 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
         fp = fingerprint("stage", kind, prev_fp, tokens, *extra, pins=stage_pins)
         pins.extend(stage_pins)
         out_cols = _segment_out_cols(ops, prev_out)
-        fn: Optional[Callable] = None
-        for op in ops:
-            fn = pure_step(op, fn)
-        stages.append(Stage(
-            index=idx, kind=kind, ops=ops, fingerprint=fp,
-            out_columns=tuple(out_cols), fn=fn,
-        ))
+        if kind == "pure":
+            fn: Optional[Callable] = None if idx == 0 else _from_mid
+            for op in ops:
+                fn = pure_step(op, fn)
+            stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
+                          out_columns=tuple(out_cols), fn=fn)
+        else:
+            stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
+                          out_columns=tuple(out_cols), udf=ops[0])
+        stages.append(stage)
         prev_fp = fp
         prev_out = out_cols
     return StageGraph(plan=plan, stages=stages)
+
+
+# ---------------------------------------------------------------------------
+# Host-boundary (MLUdf) execution
+# ---------------------------------------------------------------------------
+
+
+def run_udf(udf, cols: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Batch-at-a-time interpreted pipeline execution (host)."""
+    from repro_torch.ml.pipeline import run_pipeline
+
+    n = len(next(iter(cols.values())))
+    in_names = udf.pipeline.input_names()
+    outs: dict[str, list[np.ndarray]] = {o: [] for o in udf.pipeline.outputs}
+    bs = udf.batch_size
+    for s in range(0, max(n, 1), bs):
+        batch = {k: cols[k][s : s + bs] for k in in_names}
+        if len(next(iter(batch.values()))) == 0:
+            continue
+        res = run_pipeline(udf.pipeline, batch)
+        for o in udf.pipeline.outputs:
+            outs[o].append(np.asarray(res[o]))
+    if n == 0:
+        # run the pipeline over the zero-row slice anyway: outputs must keep
+        # their true trailing shape (split-lowering block columns are 2-D),
+        # or the downstream pure stage would see the wrong rank
+        res = run_pipeline(udf.pipeline, {k: cols[k][:0] for k in in_names})
+        for o in udf.pipeline.outputs:
+            outs[o].append(np.asarray(res[o]))
+    result = dict(cols)
+    for o, name in zip(udf.pipeline.outputs, udf.output_names):
+        result[name] = np.concatenate(outs[o])
+    for c in udf.consumes:  # block columns ending at this boundary (split)
+        if c not in udf.output_names:
+            result.pop(c, None)
+    return result
+
+
+def host_step(
+    stage: Stage,
+    state: State,
+    env: dict[str, Any],
+    *,
+    bucketer: Optional[Callable[[int], int]] = None,
+    on_mid_bucket: Optional[Callable[[int, int], None]] = None,
+) -> tuple[State, dict[str, Any]]:
+    """Run one MLUdf host boundary: synchronize with the device, copy the
+    upstream state to the host and compact it to valid rows, run the
+    interpreted pipeline, re-pad the output to a shape bucket, and upload it
+    as the ``__mid__`` pseudo-table.
+
+    Uploads demote 64-bit outputs to 32-bit (the interpreter's float64
+    scores and int64 labels), as the reference's ``jnp.asarray`` does, so
+    the next stage computes on the reference's dtypes. ``bucketer`` (for
+    the serving layer, ROADMAP item 6) maps the compacted row count to a
+    padded bucket, so the next pure stage sees power-of-two shapes, pad
+    rows invalid; ``on_mid_bucket(stage_index, bucket)`` lets the caller
+    account the buckets.
+    Returns the new state and the env (with ``__mid__`` installed) for the
+    downstream stages.
+    """
+    # the reference's "udf" fault site (maybe_inject) comes with
+    # exec/faults.py: ROADMAP.md Queue 1 item 7
+    cols, valid, seg = state
+    device = valid.device
+    t0 = time.perf_counter()
+    if valid.is_cuda:
+        torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    mask = valid.cpu().numpy()
+    np_cols = {k: v.cpu().numpy()[mask] for k, v in cols.items()}  # compact
+    np_seg = seg.cpu().numpy()[mask] if seg is not None else None
+    t2 = time.perf_counter()
+    out = run_udf(stage.udf, np_cols)
+    n = len(next(iter(out.values()))) if out else 0
+    b = bucketer(n) if bucketer is not None else n
+    if b > n:
+        out = {
+            k: np.concatenate([v, np.zeros((b - n,) + v.shape[1:], dtype=v.dtype)])
+            for k, v in out.items()
+        }
+        if np_seg is not None:
+            np_seg = np.concatenate([np_seg, np.zeros(b - n, dtype=np_seg.dtype)])
+    if on_mid_bucket is not None:
+        on_mid_bucket(stage.index, b)
+    t3 = time.perf_counter()
+    mid = {k: to_device(v, device) for k, v in out.items()}
+    mid[MID_VALID] = torch.from_numpy(np.arange(b) < n).to(device)
+    if np_seg is not None:
+        mid[MID_SEG] = to_device(np_seg.astype(np.int32), device)
+    t4 = time.perf_counter()
+    for part, dt in (("sync", t1 - t0), ("down", t2 - t1), ("udf", t3 - t2),
+                     ("up", t4 - t3)):
+        stage.host_s[part] = stage.host_s.get(part, 0.0) + dt
+    env = dict(env)
+    env[MID_TABLE] = mid
+    return _from_mid(env), env
 
 
 # ---------------------------------------------------------------------------
@@ -439,14 +572,19 @@ def run_graph(graph: StageGraph, env: dict[str, Any]) -> RunResult:
     """Execute a stage graph over an environment, one stage at a time.
 
     Each stage's time includes its device work: on CUDA the runner
-    synchronizes after the stage, as the reference blocks on its results."""
+    synchronizes after a pure stage, as the reference blocks on its results.
+    A host boundary's output runs at its exact compacted shape (the one-shot
+    path; the serving layer's bucketing goes through :func:`host_step`)."""
     state: Optional[State] = None
     timings: list[float] = []
     for stage in graph.stages:
         t0 = time.perf_counter()
-        state = stage.fn(env)
-        if state[1].is_cuda:
-            torch.cuda.synchronize(state[1].device)
+        if stage.kind == "pure":
+            state = stage.fn(env)
+            if state[1].is_cuda:
+                torch.cuda.synchronize(state[1].device)
+        else:
+            state, env = host_step(stage, state, env)
         dt = time.perf_counter() - t0
         stage.calls += 1
         stage.total_s += dt

@@ -216,8 +216,208 @@ def run_pipeline(
     return {o: vals[o] for o in pipeline.outputs}
 
 
+# ---------------------------------------------------------------------------
+# Coverage/frontier analysis: split a partially-supported pipeline
+# ---------------------------------------------------------------------------
+#
+# MLtoDNN used to be whole-pipeline-or-fail: one unsupported node and the
+# entire pipeline fell back to a host MLUdf. The split analysis instead cuts
+# the DAG into three standalone pipelines:
+#
+#   prefix   — the maximal supported slice reachable from the graph inputs
+#              without passing through an unsupported node (lowered to the
+#              tensor runtime),
+#   residual — the minimal host slice: every unsupported node plus any
+#              supported node sandwiched between unsupported ones,
+#   suffix   — supported nodes all of whose consumers already sit in the
+#              suffix (lowered back to the tensor runtime after the host
+#              residual).
+#
+# Values crossing a segment boundary become reserved "block" columns named
+# ``__pv_<value>`` (2-D (N,k) arrays threaded through the relational engine
+# like any other column and dropped by their last consumer); graph outputs
+# keep their query-visible names via the ``rename`` map.
+
+SEGMENTS = ("prefix", "residual", "suffix")
+_SEG_RANK = {s: i for i, s in enumerate(SEGMENTS)}
+
+
+def cut_column(value: str) -> str:
+    """Reserved column name for a pipeline value crossing a split boundary."""
+    return f"__pv_{value}"
+
+
+@dataclass
+class SplitSegment:
+    """One slice of a split pipeline, ready for plan emission.
+
+    ``out_cols`` are the engine column names aligned 1:1 with
+    ``pipeline.outputs``; ``consumes`` are upstream block columns this
+    segment is the last consumer of (the plan node drops them).
+    """
+
+    pipeline: TrainedPipeline
+    out_cols: list[str]
+    consumes: list[str]
+
+
+@dataclass
+class PipelineSplit:
+    prefix: Optional[SplitSegment]
+    residual: Optional[SplitSegment]
+    suffix: Optional[SplitSegment]
+    # (node label, segment) per original node, topo order — the optimizer's
+    # per-node runtime-placement annotation
+    placement: list[tuple[str, str]]
+
+    @property
+    def fully_supported(self) -> bool:
+        return self.residual is None
+
+
 def _node_label(n: PipelineNode) -> str:
     return f"{n.op}[{', '.join(n.outputs)}]"
+
+
+def split_pipeline(
+    pipe: TrainedPipeline,
+    supported,
+    rename: Optional[dict[str, str]] = None,
+) -> PipelineSplit:
+    """Cut ``pipe`` into prefix/residual/suffix around ``supported``.
+
+    ``supported(node) -> bool`` is the target runtime's coverage predicate;
+    ``rename`` maps graph outputs to their engine column names (plan
+    ``output_names``). Each returned segment is a standalone
+    :class:`TrainedPipeline` executable by :func:`run_pipeline` (residual)
+    or any pipeline compiler (prefix/suffix).
+    """
+    rename = dict(rename or {})
+    nodes = pipe.nodes
+    produced: dict[str, int] = {}
+    for i, n in enumerate(nodes):
+        for o in n.outputs:
+            produced[o] = i
+    consumers_idx: dict[str, list[int]] = {
+        v: [j for j, m in enumerate(nodes) if v in m.inputs] for v in produced
+    }
+
+    # taint: unsupported, or transitively fed by a tainted node
+    tainted = [False] * len(nodes)
+    for i, n in enumerate(nodes):
+        dep = any(tainted[produced[v]] for v in n.inputs if v in produced)
+        tainted[i] = dep or not supported(n)
+    if not any(tainted):
+        return PipelineSplit(
+            None, None, None, [(_node_label(n), "prefix") for n in nodes]
+        )
+
+    # suffix closure (reverse topo): a supported tainted node re-enters the
+    # tensor runtime iff everything it feeds already has
+    in_suffix = [False] * len(nodes)
+    for i in reversed(range(len(nodes))):
+        n = nodes[i]
+        if tainted[i] and supported(n):
+            in_suffix[i] = all(
+                in_suffix[j]
+                for o in n.outputs
+                for j in consumers_idx.get(o, [])
+            )
+    seg_of = [
+        "prefix" if not tainted[i] else ("suffix" if in_suffix[i] else "residual")
+        for i in range(len(nodes))
+    ]
+    seg_rank = [_SEG_RANK[s] for s in seg_of]
+
+    graph_inputs = {s.name for s in pipe.inputs}
+    spec_of = {s.name: s for s in pipe.inputs}
+    out_set = set(pipe.outputs)
+
+    def _crossing(v: str) -> bool:
+        pi = produced[v]
+        return any(seg_rank[j] > seg_rank[pi] for j in consumers_idx.get(v, []))
+
+    colname: dict[str, str] = {}
+    last_rank: dict[str, int] = {}
+    for v in produced:
+        if v in out_set:
+            colname[v] = rename.get(v, v)
+        elif _crossing(v):
+            colname[v] = cut_column(v)
+            last_rank[v] = max(seg_rank[j] for j in consumers_idx[v])
+
+    segments: dict[str, Optional[SplitSegment]] = {}
+    for seg in SEGMENTS:
+        idxs = [i for i, s in enumerate(seg_of) if s == seg]
+        if not idxs:
+            segments[seg] = None
+            continue
+        here = {o for i in idxs for o in nodes[i].outputs}
+        sub_nodes = []
+        specs: list[InputSpec] = []
+        seen: set[str] = set()
+        consumes: list[str] = []
+        for i in idxs:
+            n = nodes[i].copy()
+            renamed_inputs = []
+            for v in n.inputs:
+                if v in produced and seg_of[produced[v]] != seg:
+                    renamed_inputs.append(colname[v])
+                else:
+                    renamed_inputs.append(v)
+            for orig, name in zip(n.inputs, renamed_inputs):
+                if orig in here or name in seen:
+                    continue
+                seen.add(name)
+                if orig in produced:  # an earlier segment's block column
+                    specs.append(InputSpec(name, "block"))
+                    if orig not in out_set and last_rank[orig] == _SEG_RANK[seg]:
+                        consumes.append(name)
+                else:
+                    specs.append(dataclasses.replace(spec_of[orig]))
+            n.inputs = renamed_inputs
+            sub_nodes.append(n)
+        outs_vals = []
+        for i in idxs:
+            for o in nodes[i].outputs:
+                if o in colname and o not in outs_vals:
+                    outs_vals.append(o)
+        sub = TrainedPipeline(inputs=specs, outputs=outs_vals, nodes=sub_nodes)
+        segments[seg] = SplitSegment(
+            pipeline=sub,
+            out_cols=[colname[v] for v in outs_vals],
+            consumes=consumes,
+        )
+    return PipelineSplit(
+        prefix=segments["prefix"],
+        residual=segments["residual"],
+        suffix=segments["suffix"],
+        placement=[(_node_label(n), seg_of[i]) for i, n in enumerate(nodes)],
+    )
+
+
+def select_cut(
+    pipeline: TrainedPipeline,
+    supported,
+    rename: dict[str, str] | None = None,
+    cost_model=None,
+    rows: int | None = None,
+):
+    """Cost-based cut selection: ``split_pipeline`` generates the structural
+    (coverage-maximizing) cut, and a :class:`repro_torch.core.cost.CostModel`
+    judges it against the monolithic host lowering — the only other shape
+    the verifier's ``residual-minimal`` rule admits. Returns
+    ``(PipelineSplit, CutDecision | None)``; the decision is ``None`` when
+    the pipeline is fully supported (nothing to trade off — there is no
+    host boundary to price)."""
+    split = split_pipeline(pipeline, supported, rename=rename)
+    if split.fully_supported:
+        return split, None
+    from repro_torch.core.cost import CostModel
+
+    model = cost_model if cost_model is not None else CostModel.default()
+    decision = model.choose_cut(split, pipeline.nodes, rows=rows)
+    return split, decision
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """Physical plans + execution for the columnar PyTorch data engine.
 
 A plan is a tree of operators over a database (dict of named column-dicts).
-Lowering turns it into a :class:`~repro_torch.exec.stages.StageGraph` of
-pure stages that run eagerly on the plan's device — the card unless the
-caller asks for the CPU. This module owns the plan-node definitions, the
-host→device upload with its baked dim-table sorts, and the
-fingerprint-keyed compiled-plan cache on top of the stage graph.
+Lowering splits the plan at host boundaries (``MLUdf``) into a
+:class:`~repro_torch.exec.stages.StageGraph`: maximal pure segments run
+eagerly on the plan's device — the card unless the caller asks for the CPU
+— so an MLtoSQL-compiled model runs with the scans/joins/filters around
+it, while MLUdf stages run the interpreted numpy pipeline on the host
+(the Spark→Python-UDF→ML-runtime boundary, with its copies and per-batch
+overheads). This module owns the plan-node definitions, the host→device
+upload with its baked dim-table sorts, and the fingerprint-keyed
+compiled-plan cache on top of the stage graph.
 """
 from __future__ import annotations
 
@@ -56,14 +60,14 @@ class Project:
 
 @dataclass
 class MLUdf:
-    """Host-boundary pipeline invocation (interpreted 'ML runtime'). The
-    node exists so plans keep the reference's shape; executing it is not
-    ported yet (see ``exec.stages.HOST_BOUNDARY_ITEM``)."""
+    """Host-boundary pipeline invocation (interpreted 'ML runtime')."""
 
     child: "PhysicalPlan"
     pipeline: Any  # TrainedPipeline
     output_names: list[str]  # graph outputs -> column names
     batch_size: int = 10_000
+    # upstream block columns (split-lowering cut values) this node is the
+    # last consumer of — dropped from its output schema
     consumes: tuple[str, ...] = ()
 
 
@@ -75,7 +79,7 @@ class TensorOp:
     child: "PhysicalPlan"
     fn: Callable[[dict[str, torch.Tensor]], dict[str, torch.Tensor]]
     output_names: list[str]
-    # upstream block columns this node is the last consumer of (split)
+    # upstream block columns this node is the last consumer of (see MLUdf)
     consumes: tuple[str, ...] = ()
 
 
@@ -276,9 +280,9 @@ def upload_database(database: dict, device=None) -> Database:
 @dataclass
 class CompiledPlan:
     """Reusable compiled artifact for one physical plan: the lowered
-    :class:`~repro_torch.exec.stages.StageGraph`. ``pins`` keeps
-    identity-hashed plan components alive while this entry can be looked
-    up."""
+    :class:`~repro_torch.exec.stages.StageGraph` (pure stages on the device,
+    host stages on the host). ``pins`` keeps identity-hashed plan
+    components alive while this entry can be looked up."""
 
     fingerprint: str
     graph: StageGraph

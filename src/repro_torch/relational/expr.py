@@ -129,24 +129,58 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.as_tensor(v, device=device)
 
 
+def _children(node: Expr) -> tuple:
+    if isinstance(node, Bin):
+        return (node.a, node.b)
+    if isinstance(node, Un):
+        return (node.a,)
+    if isinstance(node, Case):
+        return (node.cond, node.then, node.orelse)
+    return ()
+
+
 def eval_expr(
     expr: Expr,
     env: dict[str, torch.Tensor],
     params: dict[str, torch.Tensor] | None = None,
+    consts: dict | None = None,
 ) -> torch.Tensor:
     """Iterative post-order evaluation (no recursion limit).
 
     Constants become 0-d tensors on the columns' device (see
     :func:`_scalar`); like JAX's weakly typed scalars, a 0-d operand does
     not widen a column's dtype (an int32 column compared with ``1`` stays
-    an int32 comparison, ``x > 0.0`` on an f32 column stays f32)."""
+    an int32 comparison, ``x > 0.0`` on an f32 column stays f32).
+
+    Each intermediate is dropped once its last consumer has run, so an
+    MLtoSQL expression of ~10^4 nodes holds only the values still to be
+    consumed, not all of them. ``consts``, a dict the caller keeps for the
+    life of ``expr``, holds each constant's tensor by (node, device): a
+    constant is copied to a card once, not on every call (each copy of a
+    host scalar to the card waits for the card). Without one, the cache
+    lasts this call."""
+    if consts is None:
+        consts = {}
     device = next(iter(env.values())).device if env else None
+    # consumers still to run, per shared node (edges counted with repeats)
+    pending: dict[int, int] = {}
+    seen: set[int] = set()
+    walk = [expr]
+    while walk:
+        node = walk.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        for c in _children(node):
+            pending[id(c)] = pending.get(id(c), 0) + 1
+            walk.append(c)
     out: dict[int, torch.Tensor] = {}
+    done: set[int] = set()
     stack: list[tuple[Expr, bool]] = [(expr, False)]
     while stack:
         node, visited = stack.pop()
         nid = id(node)
-        if nid in out:
+        if nid in done:
             continue
         if isinstance(node, Col):
             out[nid] = env[node.name]
@@ -160,7 +194,10 @@ def eval_expr(
                 )
             out[nid] = _scalar(params[node.name], device)
         elif isinstance(node, Const):
-            out[nid] = _scalar(node.value, device)
+            key = (nid, device)
+            if key not in consts:
+                consts[key] = _scalar(node.value, device)
+            out[nid] = consts[key]
         elif visited:
             if isinstance(node, Bin):
                 out[nid] = _BIN[node.op](out[id(node.a)], out[id(node.b)])
@@ -171,19 +208,19 @@ def eval_expr(
                     out[id(node.cond)].to(torch.bool),
                     out[id(node.then)], out[id(node.orelse)],
                 )
+            for c in _children(node):
+                cid = id(c)
+                pending[cid] -= 1
+                if pending[cid] == 0:
+                    del out[cid]
         else:
             stack.append((node, True))
-            if isinstance(node, Bin):
-                stack.append((node.a, False))
-                stack.append((node.b, False))
-            elif isinstance(node, Un):
-                stack.append((node.a, False))
-            elif isinstance(node, Case):
-                stack.append((node.cond, False))
-                stack.append((node.then, False))
-                stack.append((node.orelse, False))
+            if isinstance(node, (Bin, Un, Case)):
+                stack.extend((c, False) for c in _children(node))
             else:
                 raise TypeError(type(node))
+            continue
+        done.add(nid)
     return out[id(expr)]
 
 

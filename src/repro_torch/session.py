@@ -16,7 +16,7 @@ IR, the optimizer and the engine, on the port's device::
     q = (db.table("patients").predict("risk").where("score >= :t")
          .select("COUNT(*)", "AVG(score)"))
 
-    prep = q.prepare(transform="dnn", params={"t": 0.6})
+    prep = q.prepare(transform="dnn", params={"t": 0.6})  # or "sql"; default "none"
     print(prep.explain())        # logical -> physical -> stage graph
     out = prep()                 # one-shot execution, numpy columns out
     prep.bind(t=0.9)             # re-bind: same plan, no new compile
@@ -278,9 +278,13 @@ class Query:
     ) -> "PreparedQuery":
         """Run the optimizer once and compile; returns a reusable handle.
 
-        ``transform`` forces a runtime (the port lowers ``"dnn"``; ``None``
-        resolves to ``"none"`` as in the reference, which raises until split
-        lowering lands); ``options`` overrides the full optimizer
+        ``transform`` forces a runtime: ``"dnn"`` (the tensor runtime on the
+        device; a pipeline with ops it cannot lower is split around them,
+        ``TensorOp → MLUdf → TensorOp``), ``"sql"`` (the pipeline compiled
+        into relational expressions, run with the query's operators) or
+        ``"none"`` (the interpreted ML runtime on the host, behind one
+        MLUdf); ``None`` resolves to ``"none"``, as in the reference without
+        a strategy. ``options`` overrides the full optimizer
         configuration. All ``:param`` placeholders must be bound via
         ``params`` (re-bindable later with :meth:`PreparedQuery.bind`).
         ``strategy`` and ``verify`` raise ``NotImplementedError`` naming
@@ -459,6 +463,20 @@ class PreparedQuery:
         lines.append("-- chosen runtimes " + "-" * 36)
         for i, t in sorted(self.report.transforms.items()):
             lines.append(f"predict[{i}] -> {t}")
+        if self.report.placement:
+            lines.append("-- runtime placement (per pipeline op) " + "-" * 17)
+            for i, nodes in enumerate(self.report.placement):
+                runtimes = {r for _, r in nodes}
+                if any("/" in r for r in runtimes):
+                    # split lowering: every op with its segment's runtime
+                    lines.append(f"predict[{i}]: split across runtimes")
+                    for label, r in nodes:
+                        lines.append(f"  {r:<16} {label}")
+                elif len(runtimes) == 1:
+                    lines.append(f"predict[{i}]: all {len(nodes)} ops on {runtimes.pop()}")
+                else:
+                    for label, r in nodes:
+                        lines.append(f"  {r:<16} {label}")
         if self.report.relational:
             lines.append("-- runtime placement (relational ops) " + "-" * 18)
             for label, r in self.report.relational:
@@ -476,9 +494,12 @@ class PreparedQuery:
             lines.append("-- optimizer notes " + "-" * 36)
             for n in self.report.notes:
                 lines.append(f"* {n}")
-        stages = self.compiled.stages
-        lines.append(f"-- stage graph: {len(stages)} pure stage(s) " + "-" * 20)
-        for st in stages:
+        graph = self.compiled.graph
+        summary = "1 pure stage" if graph.is_pure else (
+            f"{len(graph.stages)} stages, {graph.n_host_boundaries} host boundary(ies)"
+        )
+        lines.append(f"-- stage graph: {summary} " + "-" * 20)
+        for st in graph.stages:
             lines.append(f"[{st.index}] {st.kind}: {st.label}  "
                          f"fingerprint={st.fingerprint[:12]}…")
         return "\n".join(lines)

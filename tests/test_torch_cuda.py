@@ -781,3 +781,113 @@ def test_reduced_granite_serves_the_same_tokens_on_the_card_and_the_cpu(dev):
             assert LAUNCHES["flash_attention"] > before["flash_attention"]
             assert LAUNCHES["decode_attention"] > before["decode_attention"]
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# The host ML runtime (split MLtoDNN, transform="none") and MLtoSQL
+# ---------------------------------------------------------------------------
+
+
+def _split_udf(X):
+    return (X.astype(np.float32) * np.float32(0.5)) + np.float32(0.25)
+
+
+_split_udf.__fingerprint_token__ = "test-torch-cuda-split-udf-v1"
+
+
+def _hospital_on_both(split: bool):
+    """A small hospital model (and, with ``split``, its form with a
+    python_udf over the feature block before the model), its inference
+    rows and a binding of ``:t`` mid-way in a wide gap between host scores."""
+    import dataclasses
+
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.ml import GradientBoostingClassifier, fit_pipeline, run_pipeline
+    from repro_torch.ml.pipeline import PipelineNode
+
+    train, infer = make_hospital(1024, seed=0), make_hospital(5000, seed=0)
+    pipe = fit_pipeline(
+        train.joined_columns(), train.label, train.numeric, train.categorical,
+        GradientBoostingClassifier(n_estimators=10, max_depth=3),
+        categories=train.categories(),
+    )
+    if split:
+        nodes = list(pipe.nodes)
+        mi = next(i for i, nd in enumerate(nodes) if nd.op == "tree_ensemble")
+        udf = PipelineNode("python_udf", [nodes[mi].inputs[0]], ["features_h"],
+                           {"fn": _split_udf})
+        model = dataclasses.replace(nodes[mi], inputs=["features_h"])
+        pipe = dataclasses.replace(pipe, nodes=[*nodes[:mi], udf, model, *nodes[mi + 1:]])
+    cols = infer.joined_columns()
+    s = np.unique(run_pipeline(pipe, {n: cols[n] for n in pipe.input_names()})["score"])
+    i = len(s) // 2 + int(np.argmax(np.diff(s[len(s) // 2:][:1001])))
+    assert s[i + 1] - s[i] >= 2e-5
+    return pipe, infer, float((s[i] + s[i + 1]) / 2)
+
+
+@pytest.mark.parametrize("transform,split", [("dnn", True), ("none", False), ("sql", False)])
+def test_host_runtime_and_mltosql_on_the_card_match_the_cpu(dev, transform, split):
+    """The split plan (featurize before the host boundary, tree_gemm and
+    segment_agg after it), the interpreter behind one MLUdf and MLtoSQL's
+    CASE expressions, run on the card and on the CPU from one compiled
+    plan: COUNT equal, AVG within rtol 1e-5; no cut column in the result."""
+    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+    from repro_torch.relational.engine import compile_plan
+    from repro_torch.sql.parser import parse_prediction_query
+
+    pipe, infer, t = _hospital_on_both(split)
+    sql = ("SELECT COUNT(*), AVG(score) FROM PREDICT(model='m', data=patients) "
+           "AS p WHERE score >= :t")
+    q = parse_prediction_query(sql, {"m": pipe}, infer.tables)
+    plan, _ = RavenOptimizer(options=OptimizerOptions(transform=transform)).optimize(q)
+    cp = compile_plan(plan)
+    want_kinds = {"dnn": ["pure", "host", "pure"], "none": ["pure", "host", "pure"],
+                  "sql": ["pure"]}[transform]
+    assert [s.kind for s in cp.stages] == want_kinds
+    before = dict(LAUNCHES)
+    got = cp.run(infer.tables, params={"t": t}).table
+    assert got.valid.is_cuda
+    got = got.to_numpy()
+    ran = {k: LAUNCHES[k] - before[k] for k in ("featurize", "tree_gemm", "segment_agg")}
+    model = 1 if transform == "dnn" else 0
+    assert ran == {"featurize": model, "tree_gemm": model, "segment_agg": 1}
+    want = cp.run(infer.tables, params={"t": t}, device="cpu").table.to_numpy()
+    assert sorted(got) == sorted(want) == ["count_rows", "mean_score"]
+    assert got["count_rows"][0] > 0
+    assert np.array_equal(got["count_rows"], want["count_rows"])
+    np.testing.assert_allclose(got["mean_score"], want["mean_score"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("udf_pos", ["start", "middle", "end"])
+def test_split_execution_on_the_card_matches_host_bitwise(dev, udf_pos):
+    """A scaler pipeline cut around a python_udf, run on the card through
+    the engine, on inputs with subnormals and signed zeros: bitwise the
+    host interpreter's (CUDA's elementwise kernels flush no subnormal)."""
+    from repro_torch.core.ir import LPredict, LScan, PredictionQuery
+    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+    from repro_torch.ml.pipeline import InputSpec, PipelineNode, TrainedPipeline, run_pipeline
+    from repro_torch.relational.engine import compile_plan
+
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 9.5e-43, -3e-39, 1.0, -1e3], np.float32)
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1e3, 1e3, 4099).astype(np.float32)
+    x[::3] = rng.choice(special, size=x[::3].size)
+    # x = 9.5e-43 gives -0.0, x = 0 a subnormal 9.5e-43
+    off, sc = np.array([9.5e-43], np.float32), np.array([-1.0], np.float32)
+    nodes = [PipelineNode("concat", ["x0"], ["raw"]),
+             PipelineNode("scaler", ["raw"], ["scaled"], {"offset": off, "scale": sc}),
+             PipelineNode("feature_extractor", ["scaled"], ["feat"], {"indices": [0]})]
+    where = {"start": 0, "middle": 2, "end": 3}[udf_pos]
+    src = ["x0", "raw", "scaled", "feat"][where]
+    nodes.insert(where, PipelineNode("python_udf", [src], [src + "_h"], {"fn": _split_udf}))
+    for nd in nodes[where + 1:]:
+        nd.inputs = [src + "_h" if v == src else v for v in nd.inputs]
+    final = nodes[-1].outputs[0]
+    pipe = TrainedPipeline(inputs=[InputSpec("x0", "numeric")], outputs=[final], nodes=nodes)
+    q = PredictionQuery(plan=LPredict(LScan("t", ["x0"]), pipe, [final]))
+    plan, _ = RavenOptimizer(options=OptimizerOptions(
+        transform="dnn", projection_pushdown=False)).optimize(q)
+    out = compile_plan(plan).run({"t": {"x0": x}}).table.to_numpy()
+    want = np.asarray(run_pipeline(pipe, {"x0": x})[final], np.float32).reshape(-1)
+    got = np.asarray(out[final], np.float32).reshape(-1)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -3,8 +3,8 @@
 reference's ``repro.session`` on the same tables and pipelines, on the CPU.
 
 Pipelines are trained by the reference and carried over through its save
-format. Both sessions prepare with ``transform="dnn"`` (the port's lowering);
-COUNTs must be equal and AVGs within ``rtol=1e-5`` (the port and the
+format. Both sessions prepare with ``transform="dnn"`` unless a test says
+otherwise (``"sql"``, or the default ``"none"``); COUNTs must be equal and AVGs within ``rtol=1e-5`` (the port and the
 reference sum the trees in another order; thresholds sit mid-way in wide
 gaps between scores, so last-bit differences move no row across them).
 Fingerprints are compared within each package: the two hash their own
@@ -137,15 +137,45 @@ def test_connect_with_optimizer_options_sets_the_default_transform(quickstart):
             "asthma" if isinstance(options, ConnectOptions) else None)
 
 
-def test_default_transform_resolves_to_none_and_raises_naming_split_lowering(sessions):
-    _, db = sessions
-    q = db.sql(QUICKSTART)
-    with pytest.raises(NotImplementedError, match="transform='none'.*split lowering"):
-        q.prepare(params={"threshold": 0.5})
-    with pytest.raises(NotImplementedError, match="transform='none'.*item 4"):
-        RavenOptimizer(options=OptimizerOptions()).optimize(q.ir)
+def test_default_transform_resolves_to_none_and_matches_reference(quickstart, sessions):
+    """No transform and no strategy: the interpreted runtime behind one
+    MLUdf (``pure, host, pure``), as in the reference."""
+    ds, _, _, score = quickstart
+    ref_db, db = sessions
+    t0, t1 = _gap_thresholds(score[ds.tables["patients"]["asthma"] == 1], (0.3, 0.7))
+    prep = db.sql(QUICKSTART).prepare(params={"threshold": t0})
+    ref_prep = ref_db.sql(QUICKSTART).prepare(params={"threshold": t0})
+    assert prep.report.transforms == ref_prep.report.transforms == {0: "none"}
+    assert [s.kind for s in prep.compiled.stages] == ["pure", "host", "pure"] == [
+        s.kind for s in ref_prep.compiled.graph.stages]
+    _assert_agg_close(_values(prep()), _values(ref_prep()))
+    prep.bind(threshold=t1)
+    ref_prep.bind(threshold=t1)
+    _assert_agg_close(_values(prep()), _values(ref_prep()))
+    plan, report = RavenOptimizer(options=OptimizerOptions()).optimize(db.sql(QUICKSTART).ir)
+    assert report.transforms == {0: "none"}
+    assert any(isinstance(p, teng.MLUdf) for p in teng.walk_plan(plan))
     with pytest.raises(NotImplementedError, match="item 9"):
         RavenOptimizer(strategy=object())
+
+
+def test_sql_transform_matches_reference(quickstart, sessions):
+    """MLtoSQL: the model as CASE expressions in one pure stage; the score
+    filter moves to logit space, AVG(score) reads probabilities."""
+    ds, _, _, score = quickstart
+    ref_db, db = sessions
+    t0, t1 = _gap_thresholds(score[ds.tables["patients"]["asthma"] == 1], (0.3, 0.7))
+    prep = db.sql(QUICKSTART).prepare(transform="sql", params={"threshold": t0})
+    ref_prep = ref_db.sql(QUICKSTART).prepare(transform="sql", params={"threshold": t0})
+    assert prep.report.stages == ref_prep.report.stages
+    assert prep.report.notes == ref_prep.report.notes
+    assert prep.compiled.graph.is_pure and "Project" in prep.report.stages[0]
+    _assert_agg_close(_values(prep()), _values(ref_prep()))
+    prep.bind(threshold=t1)
+    ref_prep.bind(threshold=t1)
+    _assert_agg_close(_values(prep()), _values(ref_prep()))
+    text = prep.explain()
+    assert "predict[0] -> sql" in text and "ops on sql" in text
 
 
 # ---------------------------------------------------------------------------

@@ -314,16 +314,49 @@ def test_run_without_device_raises_when_no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("transform", ["sql", "none", None])
-def test_unported_transforms_raise(hospital_case, transform):
-    _, port_pipe, infer, _ = hospital_case
-    q = parse_prediction_query(QUERY, {"m": port_pipe}, infer.tables)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RavenOptimizer(options=OptimizerOptions(transform=transform)).optimize(q)
+def test_transforms_match_reference(hospital_case, transform):
+    """MLtoSQL (one pure stage) and the interpreted runtime (``None`` is
+    ``"none"``: pure, host, pure) against the reference's lowering of the
+    same query."""
+    ref_pipe, port_pipe, infer, thresholds = hospital_case
+    opts = {"transform": transform}
+    ref_plan, ref_report = RefOptimizer(options=RefOptions(**opts)).optimize(
+        ref_parse(QUERY, {"m": ref_pipe}, infer.tables))
+    plan, report = RavenOptimizer(options=OptimizerOptions(**opts)).optimize(
+        parse_prediction_query(QUERY, {"m": port_pipe}, infer.tables))
+    assert report.stages == ref_report.stages
+    assert report.placement == ref_report.placement
+    ref_cp, cp = reng.compile_plan(ref_plan), teng.compile_plan(plan)
+    ref_db = {t: {c: jnp.asarray(v) for c, v in cs.items()}
+              for t, cs in infer.tables.items()}
+    db = teng.upload_database(infer.tables, "cpu")
+    for t in thresholds:
+        want = ref_cp.run(ref_db, params={"t": t}).table.to_numpy()
+        got = cp.run(db, params={"t": t}, device="cpu").table.to_numpy()
+        assert got["count_rows"][0] > 0
+        assert np.array_equal(got["count_rows"], want["count_rows"])
+        np.testing.assert_allclose(got["mean_score"], want["mean_score"], rtol=1e-5)
 
 
-def test_plan_with_host_boundary_raises():
+def test_plan_with_host_boundary_runs_on_the_host():
+    """An MLUdf plan lowers to a pure stage and a host stage; the host stage
+    runs the interpreter over the valid rows only."""
     from repro_torch.exec.stages import build_stage_graph
+    from repro_torch.ml.pipeline import InputSpec, PipelineNode, TrainedPipeline, run_pipeline
+    from repro_torch.relational.expr import Bin, Col, Const
 
-    plan = teng.MLUdf(teng.Scan("f", ["x"]), pipeline=None, output_names=["y"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_stage_graph(plan)
+    pipe = TrainedPipeline(
+        inputs=[InputSpec("x", "numeric")], outputs=["y"],
+        nodes=[PipelineNode("scaler", ["x"], ["y"], {
+            "offset": np.asarray([0.5], np.float32), "scale": np.asarray([3.0], np.float32)})],
+    )
+    plan = teng.MLUdf(teng.Filter(teng.Scan("f", ["x"]), Bin("gt", Col("x"), Const(0.0))),
+                      pipeline=pipe, output_names=["y"], batch_size=4)
+    graph = build_stage_graph(plan)
+    assert [s.kind for s in graph.stages] == ["pure", "host"]
+    assert graph.stages[1].udf is plan and graph.stages[1].out_columns == ("x", "y")
+    x = np.random.default_rng(0).normal(size=11).astype(np.float32)
+    out = teng.execute_plan(plan, {"f": {"x": x}}, device="cpu").to_numpy()
+    want = run_pipeline(pipe, {"x": x[x > 0]})["y"]
+    assert np.array_equal(out["x"], x[x > 0])
+    assert np.array_equal(out["y"], want)  # batches of 4: the same rows, the same bits
