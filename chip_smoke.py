@@ -25,14 +25,20 @@ entry points a user calls. Two plans make up that path:
   ``segment_agg``), as a global fold and segmented into 6 requests, through
   ``compile_plan`` → ``CompiledPlan.run``;
 
+every pure stage of them captured on its first call of each input shape into
+one CUDA graph and replayed after (``repro_torch.exec.capture``, the port's
+``jax.jit``; ``capture.disabled()`` runs them eagerly, the A/B switch);
+
 The transforms phase prepares the same hospital query under the other two
 runtimes, ``transform="none"`` (the interpreted ML runtime behind an MLUdf
 host boundary) and ``"sql"`` (MLtoSQL: the model as CASE expressions), and
 runs a split plan (a pipeline with a host-only op, lowered to
 ``TensorOp → MLUdf → TensorOp``: ``featurize`` before the host boundary,
 ``tree_gemm`` and ``segment_agg`` after it);
-and a third path serves an LM through ``build_model(get_config(...)).init``
-→ ``ServeEngine.submit`` → ``ServeEngine.run``:
+the served phase registers the hospital query with the query server
+(``prep.serve()`` → ``prep.submit`` → ``db.flush()``, or the pump); and a
+third path serves an LM through ``build_model(get_config(...)).init`` →
+``ServeEngine.submit`` → ``ServeEngine.run``, its decode tick one CUDA graph:
 
 * granite-3-8b at its published width and full depth (d_model 4096, 40
   layers, 32 query and 8 KV heads, d_ff 12800, bf16, random weights drawn
@@ -44,9 +50,11 @@ and a third path serves an LM through ``build_model(get_config(...)).init``
 In order it
 
 1. prints the card's name and power limit, and the kernels' build time;
-2. runs each plan once as a warm-up, and serves the LM workload once,
-   recording the arguments every kernel wrapper is given the first time it
-   sees each shape (a copy: the LM's caches change in place afterwards);
+2. runs each plan once as a warm-up (capturing its graphs), and serves the
+   LM workload once with the tick eager (the run the captured tick's tokens
+   are held against), recording the arguments every kernel wrapper is given
+   the first time it sees each shape (a copy: the LM's caches change in
+   place afterwards);
 3. holds each kernel against its plain PyTorch version on the card on
    those arguments (``featurize``, ``gather_join`` and ``segment_agg`` on
    dyadic data bitwise; ``tree_gemm`` within 1e-5 and ``segment_agg`` on
@@ -87,8 +95,9 @@ In order it
    expressions, one pure stage) and ``"dnn"``; for each, its stage kinds,
    ``explain()``'s placement, the request times (median and max over the
    three bindings) and the card's busy time and idle share of one profiled
-   request, with the counts zeroed before and read after (``segment_agg``
-   in every one, ``featurize`` and ``tree_gemm`` in ``dnn`` only). COUNT
+   request (graph replays: the profiler sees their kernels), with the counts
+   zeroed before and read after (``segment_agg`` in every one,
+   ``featurize`` and ``tree_gemm`` in ``dnn`` only). COUNT
    equals the host oracle's under ``none`` and ``dnn`` (AVG within rtol
    1e-5); under ``sql`` COUNT and AVG equal the same prepared query run by
    the port on the CPU, and ``SELECT *`` under ``sql`` flips under 0.8% of
@@ -99,16 +108,34 @@ In order it
    host interpreter, its request time with the host boundary's parts (sync,
    copy down, interpreter, copy up), no cut column in its result and its
    scores within rtol 1e-5 of the interpreter's float64 scores;
-6. zeroes the counts again and serves the LM workload, printing prefill
-   time per admission, the median decode tick, time to first token and
-   generated tokens per second; reads the counts (40 ``flash_attention``
-   launches an admission, 40 ``decode_attention`` launches a tick); then
-   serves it once more with the two attention wrappers swapped for their
-   plain versions and holds the served tokens equal, step by step, up to
-   the first near-tie between a step's top two logits;
-7. prints the kernel table as one JSON line (``launches``: the sum over
-   every counted run of the main path: the hospital query and dashboard
-   plan, the transforms phase, the LM serving run) and, last, the device line
+6. the capture phase: the hospital query under ``dnn``, ``sql`` and
+   ``none``, the split plan and the dashboard plan (global and 6 segments)
+   run captured and under ``capture.disabled()``: every captured result
+   bitwise the eager one, no capture on a repeated shape; request medians
+   and maximums of both, the card's idle share of each, captures a stage,
+   input copies a request and the graphs' memory;
+7. the served phase: ``prep.serve()``, then 64 batches of 1 to 4,096 rows
+   (slices of the patients table) submitted and flushed, each answer held
+   against the same prepared query's one-shot call (run eagerly: no graph
+   a size); a second pass over the same buckets captures nothing and
+   repeats the first bit for bit; a third with the pump on
+   (``max_latency_ms=5``), a fourth through the serial runner; request
+   latency (median, max) and rows a second of each;
+8. zeroes the counts again and serves the LM workload with the decode tick
+   captured (one graph, after one eager warm-up tick), printing prefill
+   time per admission, the decode tick (median, p90), time to first token
+   and generated tokens per second beside the eager run's; reads the
+   counts (40 ``flash_attention`` launches an admission, 40
+   ``decode_attention`` launches a tick and the warm-up tick); holds the
+   captured run's tokens equal to the eager run's; then serves it once
+   more eagerly with the two attention wrappers swapped for their plain
+   versions and holds the eager run's tokens equal to them, step by step,
+   up to the first near-tie between a step's top two logits; profiles a
+   captured and an eager tick (the card's busy time and idle share);
+9. prints the run's total time, the kernel table as one JSON line
+   (``launches``: the sum over every counted run of the main path: the
+   hospital query and dashboard plan, the transforms, capture and served
+   phases, the LM serving run) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -934,10 +961,13 @@ def lm_requests(vocab: int, seed: int = 1) -> list[tuple[list[int], int]]:
 
 class TracedModel:
     """The model as the engine sees it, for one serving run: each prefill
-    admission and decode tick is timed between two synchronisations, and
-    each step's logits are kept by (request id, step). Requests are admitted
-    in submission order, so a prefill's rows are the next request ids; a
-    decode tick's rows are the engine's slots."""
+    admission and decode tick is timed between two synchronisations (a tick
+    as the engine runs it: the decode step, the argmax and the tokens back
+    on the host), and, where the tick runs eagerly, each step's logits are
+    kept by (request id, step). Requests are admitted in submission order,
+    so a prefill's rows are the next request ids; a decode tick's rows are
+    the engine's slots. A captured tick calls ``decode`` only to warm up and
+    to be captured, and its logits stay in the graph."""
 
     def __init__(self, model, recorder=None):
         self.model, self.cfg, self.recorder = model, model.cfg, recorder
@@ -968,18 +998,23 @@ class TracedModel:
         return logits, caches
 
     def decode(self, params, batch, caches):
+        from repro_torch.exec import capture
+
         self._label("lm decode" if len(self.prefills) == 1 else "lm decode, slots recycled")
-        rows = [(r.rid, len(r.output)) if r is not None else None
-                for r in self.engine.slot_req]
+        logits, caches = self.model.decode(params, batch, caches)
+        if not capture.enabled():
+            for i, r in enumerate(self.engine.slot_req):
+                if r is not None:
+                    self.logits[(r.rid, len(r.output))] = (logits, i)
+        return logits, caches
+
+    def tick(self, run):
+        """The engine's decode tick ``run``, timed."""
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits, caches = self.model.decode(params, batch, caches)
-        torch.cuda.synchronize()
+        tokens = run()  # on the host: the card is done
         self.ticks_ms.append(1e3 * (time.perf_counter() - t))
-        for i, key in enumerate(rows):
-            if key is not None:
-                self.logits[key] = (logits, i)
-        return logits, caches
+        return tokens
 
     def row(self, rid: int, step: int) -> torch.Tensor:
         logits, i = self.logits[(rid, step)]
@@ -987,14 +1022,17 @@ class TracedModel:
 
 
 def serve_lm(model, params, requests, dev, recorder=None):
-    """One serving run of the workload; returns (trace, outputs by request
-    id, wall seconds)."""
+    """One serving run of the workload, its decode tick captured unless
+    under ``capture.disabled()``; returns (trace, outputs by request id,
+    wall seconds)."""
     from repro_torch.serve import ServeEngine
 
     traced = TracedModel(model, recorder)
     eng = ServeEngine(traced, params, n_slots=LM_SLOTS, cache_len=LM_CACHE, device=dev)
     eng.prefill_len = LM_PROMPT
     traced.engine = eng
+    run_tick = eng._tick
+    eng._tick = lambda: traced.tick(run_tick)
     for prompt, n in requests:
         eng.submit(prompt, max_new_tokens=n)
     torch.cuda.synchronize()
@@ -1079,14 +1117,15 @@ def device_ms_by_kernel(prof) -> dict[str, tuple[int, float]]:
     return out
 
 
-def profile_lm(model, params, requests, dev, tick_ms: float) -> None:
+def profile_lm(model, params, requests, dev, tick_ms: float, mode: str) -> None:
     """Where the time goes, by torch.profiler: four decode ticks over all
     16 slots (the first 16 requests, admitted together, at lengths
-    513..516), then the admission of a single request. Prints each part's
-    host time, the card's busy time (the sum of its kernels: one stream)
-    and the kernels that take most of it; the idle share of a tick is set
-    against the unprofiled median tick of the main run, since profiling
-    slows the host."""
+    513..516; replays of the captured tick unless under
+    ``capture.disabled()``), then the admission of a single request. Prints
+    each part's host time, the card's busy time (the sum of its kernels:
+    one stream) and the kernels that take most of it; the idle share of a
+    tick is set against the unprofiled median tick of the ``mode`` run,
+    since profiling slows the host."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeEngine
@@ -1116,12 +1155,12 @@ def profile_lm(model, params, requests, dev, tick_ms: float) -> None:
         busy = sum(ms for _, ms in kernels.values()) / n
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
         parts[part] = busy
-        print(f"profile {part}: host {wall!r} ms under the profiler, card busy "
+        print(f"profile {mode} {part}: host {wall!r} ms under the profiler, card busy "
               f"{busy!r} ms; top kernels (launches, ms each {part}): "
               + "; ".join(f"{name[:60]} ({c / n:g}, {ms / n:.4f})"
                           for name, (c, ms) in top), flush=True)
-    print(f"profile: a decode tick's card busy time is {parts['decode tick']!r} ms of "
-          f"the main run's median tick {tick_ms!r} ms: idle share "
+    print(f"profile {mode}: a decode tick's card busy time is {parts['decode tick']!r} ms "
+          f"of the unprofiled median tick {tick_ms!r} ms: idle share "
           f"{1 - parts['decode tick'] / tick_ms!r}", flush=True)
 
 
@@ -1220,16 +1259,13 @@ def placement(prep) -> list[str]:
 def drive_counted(prep, thresholds) -> tuple[list, list[float], dict[str, int]]:
     """One request for each binding with every launch count zeroed just
     before: the (COUNT, AVG) answers, the request times and the counts."""
-    from repro_torch.kernels import _build
-
-    for name in KERNELS:
-        _build.LAUNCHES[name] = 0
+    zero_counts()
     answers, times = [], []
     for t in thresholds:
         count, avg, ms = run_hospital(prep, t)
         answers.append((count, avg))
         times.append(ms)
-    return answers, times, dict(_build.LAUNCHES)
+    return answers, times, read_counts()
 
 
 def host_boundary(prep):
@@ -1250,25 +1286,27 @@ def report_boundary(stage, before: dict, n: int, request_ms: float, label: str,
           f"({total / request_ms!r})", flush=True)
 
 
-def card_busy(prep, t: float, request_ms: float, label: str, smi: str) -> None:
+def card_busy(prep, t: float, request_ms: float, label: str, smi: str,
+              phase: str = "transforms") -> float:
     """The card's busy time in one profiled request and its idle share of
-    the unprofiled median request."""
+    the unprofiled median request; returns the busy time in ms."""
     kernels, wall = profile_request(prep, t)
     busy = sum(ms for _, ms in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
-    print(f"transforms [{smi}] {label}: profiled request host {wall!r} ms, card busy "
+    print(f"{phase} [{smi}] {label}: profiled request host {wall!r} ms, card busy "
           f"{busy!r} ms in {sum(c for c, _ in kernels.values())} kernels and copies; idle "
           f"share of the median request {request_ms!r} ms: {1 - busy / request_ms!r}; top: "
           + "; ".join(f"{name[:50]} ({c}, {ms:.4f})" for name, (c, ms) in top), flush=True)
+    return busy
 
 
-def transforms_phase(case, session, thresholds, smi: str) -> dict[str, int]:
+def transforms_phase(case, session, thresholds, smi: str) -> tuple[dict[str, int], list]:
     """The hospital query prepared through the front door under each
     runtime on the card (``none``: the interpreter behind one MLUdf;
     ``sql``: the model as CASE expressions; ``dnn``: one tensor program),
     and the split plan of a pipeline with a host-only op. Each is driven
     with the launch counts zeroed just before it; returns the counts summed
-    over all of them."""
+    over all of them, and the split plan's bindings of ``:t``."""
     import repro_torch as raven
     from repro_torch.ml import run_pipeline
 
@@ -1375,10 +1413,213 @@ def transforms_phase(case, session, thresholds, smi: str) -> dict[str, int]:
           f"(relative {rel!r}) of the host interpreter's float64 scores "
           f"(tolerance rtol 1e-5)", flush=True)
     check(np.allclose(out["score"], score, rtol=1e-5, atol=0), (err, rel))
-    return total
+    return total, s_thresholds
 
 
-def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
+# ---------------------------------------------------------------------------
+# Capture: every plan of the main path captured against eager
+# ---------------------------------------------------------------------------
+
+# passes over a plan's calls, captured and eager: one for the hospital plans
+# (the transforms phase has timed their captured requests already; ``none``
+# spends a second a request in the host interpreter), three for the dashboard
+HOSPITAL_PASSES, DASHBOARD_PASSES = 1, 3
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import _build
+
+    for name in KERNELS:
+        _build.LAUNCHES[name] = 0
+
+
+def read_counts() -> dict[str, int]:
+    from repro_torch.kernels import _build
+
+    return {name: _build.LAUNCHES[name] for name in KERNELS}
+
+
+def timed(call) -> tuple[dict, float]:
+    """One request to its host result (numpy columns), and its ms."""
+    t0 = time.perf_counter()
+    out = call()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def pure_traces(compiled) -> list[int]:
+    return [st.traces for st in compiled.stages if st.kind == "pure"]
+
+
+def compare_modes(label: str, calls: list, traces, passes: int, smi: str) -> dict:
+    """Every call of ``calls`` (one a binding or a segmentation) run
+    ``passes`` times captured and as often eagerly under
+    ``capture.disabled()``: every captured result bitwise the eager one of
+    its call, and no capture while they ran (``traces`` reads the plan's
+    captures per pure stage). Returns the phase's numbers."""
+    from repro_torch.exec import capture
+    from repro_torch.relational.engine import PLAN_CACHE_STATS
+
+    before = traces()
+    copies, replays = PLAN_CACHE_STATS.capture_input_copies, PLAN_CACHE_STATS.replays
+    captured = [[timed(c) for c in calls] for _ in range(passes)]
+    copied = PLAN_CACHE_STATS.capture_input_copies - copies
+    replayed = PLAN_CACHE_STATS.replays - replays
+    with capture.disabled():
+        eager = [[timed(c) for c in calls] for _ in range(passes)]
+    check(traces() == before, f"{label}: a repeated shape captured again ({before} -> "
+                              f"{traces()})")
+    for rep in captured + eager:
+        for (got, _), (want, _) in zip(rep, eager[0]):
+            check_bitwise(got, want, f"capture {label}: captured vs eager")
+    cap_ms = [ms for rep in captured for _, ms in rep]
+    eager_ms = [ms for rep in eager for _, ms in rep]
+    graphs, graph_bytes = capture.held()
+    stats = {
+        "plan": label, "requests": len(cap_ms),
+        "captured_ms_median": float(np.median(cap_ms)), "captured_ms_max": max(cap_ms),
+        "eager_ms_median": float(np.median(eager_ms)), "eager_ms_max": max(eager_ms),
+        "captures_per_stage": before, "new_captures_on_repeat": 0,
+        "replays_per_request": replayed / len(cap_ms),
+        "input_copies_per_request": copied / len(cap_ms),
+        "graphs_held": graphs, "graph_bytes_held": graph_bytes,
+    }
+    print(f"capture [{smi}]:", json.dumps(stats), flush=True)
+    return stats
+
+
+def capture_phase(session, thresholds, s_thresholds, tables, seg, dev, smi) -> dict[str, int]:
+    """The main path's plans captured (one CUDA graph a pure stage and
+    input shape, replayed) against the same plans run eagerly under
+    ``capture.disabled()``: the hospital query under ``dnn``, ``sql`` and
+    ``none``, the split plan, and the dashboard plan global and in 6
+    segments, each bitwise equal to its eager run and capturing nothing on
+    repeated shapes; request times of both, the card's busy time and idle
+    share of one captured request (torch.profiler sees the graph's
+    kernels), the captures a stage, the input copies a request and the
+    graphs' memory. Driven with the launch counts zeroed just before it;
+    returns its counts."""
+    from repro_torch.relational.engine import compile_plan, upload_database
+
+    zero_counts()
+    plans = [(f"hospital {tr}", QUERY, tr, thresholds) for tr in ("dnn", "sql", "none")]
+    plans.append(("split", SPLIT_QUERY, "dnn", s_thresholds))
+    for label, sql, transform, ts in plans:
+        prep = session.sql(sql).prepare(transform=transform, params={"t": ts[1]})
+        prep()  # the plan's graphs, where an earlier phase did not capture them
+        calls = [lambda t=t: prep.bind(t=t)() for t in ts]
+        stats = compare_modes(label, calls, lambda: pure_traces(prep.compiled),
+                              HOSPITAL_PASSES, smi)
+        busy = card_busy(prep, ts[1], stats["captured_ms_median"], f"{label} captured",
+                         smi, phase="capture")
+        check(busy > 0, f"{label}: the profiler saw no kernel of the captured request")
+        # the eager request runs the same kernels: the same busy time
+        print(f"capture [{smi}] {label}: idle share {1 - busy / stats['captured_ms_median']!r}"
+              f" captured, {1 - busy / stats['eager_ms_median']!r} eager", flush=True)
+    db = upload_database(tables, dev)
+    cp = compile_plan(dashboard_plan(), cache=False)
+    for label, segments in (("dashboard global", None),
+                            ("dashboard 6 segments", (seg, N_REQUESTS))):
+        cp.run(db, segments=segments)
+        compare_modes(label, [lambda s=segments: cp.run(db, segments=s).table.to_numpy()],
+                      lambda: pure_traces(cp), DASHBOARD_PASSES, smi)
+    counts = read_counts()
+    print("launches of the capture phase:", counts, flush=True)
+    check(all(counts[n] > 0 for n in ("featurize", "tree_gemm", "gather_join", "segment_agg")),
+          f"a kernel of the captured plans was not launched: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The query server: prep.serve() → submit → flush
+# ---------------------------------------------------------------------------
+
+SERVED_REQUESTS, SERVED_MAX_ROWS = 64, 4096
+
+
+def served_batches(case, seed: int = 3) -> list[dict]:
+    """``SERVED_REQUESTS`` batches of 1 to ``SERVED_MAX_ROWS`` rows, each a
+    slice of the patients table at a random offset."""
+    rng = np.random.default_rng(seed)
+    cols = case["tables"]["patients"]
+    n = len(next(iter(cols.values())))
+    sizes = rng.integers(1, SERVED_MAX_ROWS + 1, SERVED_REQUESTS)
+    starts = rng.integers(0, n - SERVED_MAX_ROWS, SERVED_REQUESTS)
+    return [{c: v[s:s + k] for c, v in cols.items()} for s, k in zip(starts, sizes)]
+
+
+def served_phase(case, session, thresholds, smi: str) -> dict[str, int]:
+    """The hospital query served: ``prep.serve()`` registers it with the
+    session's server; ``SERVED_REQUESTS`` batches are submitted and
+    flushed (coalesced into padded, segmented groups), each answer held
+    against the same prepared query's one-shot call on its batch (COUNT
+    equal, AVG within rtol 1e-5: padding changes the order of the
+    kernels' sums); a second pass over the same buckets captures nothing
+    and repeats the first bit for bit; a third runs with the pump on
+    (``max_latency_ms=5``), a fourth flushes through the serial
+    stage-at-a-time runner (``pipelined=False``, the A/B baseline). Prints
+    each pass's request latency (median and max), rows a second, groups and
+    captures. Driven with the launch counts zeroed just before it; returns
+    its counts."""
+    from repro_torch.exec import capture
+    from repro_torch.relational.engine import PLAN_CACHE_STATS
+
+    zero_counts()
+    prep = session.sql(QUERY).prepare(transform="dnn", params={"t": thresholds[1]})
+    prep.serve(name="hospital")
+    srv = session.server
+    batches = served_batches(case)
+    rows = sum(len(b["age"]) for b in batches)
+    with capture.disabled():  # the one-shot answers, eagerly: no graph a size
+        wants = [prep(b) for b in batches]
+    passes = []
+    for label, pump in (("flush", False), ("flush again", False), ("pump 5 ms", True),
+                        ("flush, serial runner", False)):
+        srv.pipelined = label != "flush, serial runner"
+        recompiles, flushes = srv.recompiles(), srv.stats.flushes
+        copies = PLAN_CACHE_STATS.capture_input_copies
+        if pump:
+            srv.start_pump(5.0)
+        t0 = time.perf_counter()
+        reqs = [prep.submit(b) for b in batches]
+        if pump:
+            outs = [r.wait(timeout=120.0) for r in reqs]
+        else:
+            srv.flush()
+            outs = [r.result for r in reqs]
+        wall = time.perf_counter() - t0
+        if pump:
+            srv.stop_pump()
+        for out, want in zip(outs, wants):
+            check(np.array_equal(out["count_rows"], want["count_rows"]), (out, want))
+            check(np.allclose(out["mean_score"], want["mean_score"], rtol=1e-5, atol=0),
+                  (out, want))
+        if label in ("flush again", "flush, serial runner"):
+            check(srv.recompiles() == recompiles, "a warm bucket captured again")
+            for out, first in zip(outs, passes[0]["outs"]):
+                check_bitwise(out, first, "served: second pass vs first")
+        lat = [1e3 * r.latency_s for r in reqs]
+        stats = {
+            "pass": label, "requests": len(reqs), "rows": rows,
+            "latency_ms_median": float(np.median(lat)), "latency_ms_max": max(lat),
+            "wall_s": wall, "rows_per_s": rows / wall,
+            "groups": srv.stats.flushes - flushes,
+            "captures": srv.recompiles() - recompiles,
+            "input_copies": PLAN_CACHE_STATS.capture_input_copies - copies,
+        }
+        print(f"served [{smi}]:", json.dumps(stats), flush=True)
+        passes.append({**stats, "outs": outs})
+    snap = srv.stats_snapshot()
+    print("served: server counters", json.dumps({k: snap[k] for k in (
+        "batches_executed", "coalesced_requests", "segmented_batches", "pipelined_groups",
+        "bucket_hits", "bucket_misses", "rows_in", "rows_padded")}), flush=True)
+    counts = read_counts()
+    print("launches of the served phase:", counts, flush=True)
+    check(all(counts[n] > 0 for n in ("featurize", "tree_gemm", "segment_agg")),
+          f"a kernel of the served query was not launched: {counts}")
+    return counts
+
+
+def report_lm(traced: TracedModel, outputs: dict, wall: float, mode: str) -> dict:
     tokens = sum(len(o) for o in outputs.values())
     ttft = sorted(traced.first_token_s.values())
     full = [ms for b, ms in traced.prefills if b == LM_SLOTS]
@@ -1392,7 +1633,7 @@ def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
         "generated_tokens": tokens, "wall_s": wall,
         "generated_tokens_per_s": tokens / wall,
     }
-    print("lm serving:", json.dumps(stats), flush=True)
+    print(f"lm serving, tick {mode}:", json.dumps(stats), flush=True)
     return stats
 
 
@@ -1400,12 +1641,17 @@ def report_lm(traced: TracedModel, outputs: dict, wall: float) -> dict:
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.exec import capture
     from repro_torch.kernels import _build
+
+    def mark(what: str) -> None:  # where the run's time goes, phase by phase
+        print(f"chip_smoke: {what} done at {time.perf_counter() - start:.1f} s", flush=True)
 
     # the plain versions' float32 contractions run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1446,16 +1692,21 @@ def main() -> int:
         run_dashboard(tables, dev, "on")
         rec.label = "dashboard-segmented"
         run_dashboard(tables, dev, "on", segments=(seg, N_REQUESTS))
-        _, _, wall = serve_lm(model, params, requests, dev, recorder=rec)
-        print(f"lm warm-up served {LM_REQUESTS} requests in {wall:.2f} s", flush=True)
+        # the LM warm-up runs its tick eagerly: the run captured tokens are
+        # held against, with every step's logits kept
+        with capture.disabled():
+            eager, eager_outputs, eager_wall = serve_lm(model, params, requests, dev,
+                                                        recorder=rec)
+        print(f"lm warm-up (eager tick) served {LM_REQUESTS} requests in {eager_wall:.2f} s",
+              flush=True)
+    mark("warm-up")
     rows = parity_phase(rec.calls, extra_sites(dev, rec.calls))
     rows["tree_gemm"]["max_abs_err"] = max(rows["tree_gemm"]["max_abs_err"],
                                            non_finite_tree_gemm(rec.calls))
     del rec
 
     # the main path, counted
-    for name in KERNELS:
-        _build.LAUNCHES[name] = 0
+    zero_counts()
     from repro_torch.relational import engine
 
     builds = []
@@ -1477,50 +1728,71 @@ def main() -> int:
     print(f"hospital re-binds: {len(thresholds)} bindings, plan-cache misses "
           f"{misses} before and after, no stage graph built; fingerprint "
           f"{prep.fingerprint[:16]}", flush=True)
-    model_counts = dict(_build.LAUNCHES)
+    model_counts = read_counts()
     print("launches after the prediction query:", model_counts, flush=True)
     check(model_counts["featurize"] == len(thresholds),
           f"featurize launches {model_counts['featurize']} for {len(thresholds)} requests")
     check(all(model_counts[n] > 0 for n in ("featurize", "tree_gemm", "segment_agg")),
           f"a model kernel was not launched: {model_counts}")
     check_dashboard(tables, seg, dev)
-    counts = dict(_build.LAUNCHES)
+    counts = read_counts()
     print("launches after the dashboard plan:", counts, flush=True)
     check(counts["gather_join"] > 0 and counts["segment_agg"] > model_counts["segment_agg"],
           f"a relational kernel was not launched: {counts}")
     print("dashboard: global and segmented bitwise vs host and on vs off", flush=True)
     profile_hospital(prep, thresholds[1], float(np.median(request_ms)))
-    transforms = transforms_phase(case, session, thresholds, smi)
+    mark("parity and the main path")
+    transforms, s_thresholds = transforms_phase(case, session, thresholds, smi)
     print("launches of the transforms phase:", transforms, flush=True)
-    for name in KERNELS:
-        counts[name] += transforms[name]
+    mark("transforms phase")
+    captured = capture_phase(session, thresholds, s_thresholds, tables, seg, dev, smi)
+    mark("capture phase")
+    served = served_phase(case, session, thresholds, smi)
+    mark("served phase")
+    for phase in (transforms, captured, served):
+        for name in KERNELS:
+            counts[name] += phase[name]
 
-    # the LM serving path, counted
-    for name in KERNELS:
-        _build.LAUNCHES[name] = 0
+    # the LM serving path, counted: the decode tick captured, one graph
+    zero_counts()
     traced, outputs, wall = serve_lm(model, params, requests, dev)
-    lm_counts = dict(_build.LAUNCHES)
-    stats = report_lm(traced, outputs, wall)
-    print("launches of the LM serving run:", lm_counts, flush=True)
+    lm_counts = read_counts()
+    stats = report_lm(traced, outputs, wall, "captured")
+    eager_stats = report_lm(eager, eager_outputs, eager_wall, "eager")
+    engine = traced.engine
+    print(f"launches of the LM serving run: {lm_counts}; decode tick captured "
+          f"{engine.captures} time(s) (after one eager warm-up tick), replayed "
+          f"{engine.replays} times; the graph holds {engine.graph_bytes} bytes", flush=True)
     n_layers = model.cfg.n_layers
+    check(engine.captures == 1 and engine.replays == stats["ticks"], (engine.captures,
+                                                                      engine.replays))
     check(lm_counts["flash_attention"] == n_layers * stats["admissions"]
-          and lm_counts["decode_attention"] == n_layers * stats["ticks"]
+          and lm_counts["decode_attention"] == n_layers * (stats["ticks"] + engine.captures)
           and stats["admissions"] > 1 and stats["ticks"] > 0,
           f"attention launches {lm_counts} for {stats['admissions']} admissions and "
-          f"{stats['ticks']} ticks of {n_layers} layers")
+          f"{stats['ticks']} ticks (and {engine.captures} warm-up) of {n_layers} layers")
     check(all(lm_counts[n] == 0 for n in KERNELS if n not in ATTENTION), lm_counts)
-    with plain_attention():
+    check(outputs == eager_outputs, "the captured tick served other tokens than the eager")
+    print(f"lm: captured and eager ticks served the same {stats['generated_tokens']} tokens; "
+          f"median tick {stats['decode_tick_ms_median']!r} ms captured, "
+          f"{eager_stats['decode_tick_ms_median']!r} ms eager", flush=True)
+    mark("LM serving, tick captured")
+    with plain_attention(), capture.disabled():
         plain, plain_outputs, plain_wall = serve_lm(model, params, requests, dev)
-    check(dict(_build.LAUNCHES) == lm_counts, "the plain run launched a kernel")
-    full, near, held, D = compare_served(traced, plain, outputs, plain_outputs)
-    print(f"served tokens vs the plain-attention run ({plain_wall:.2f} s): {full} of "
+    check(read_counts() == lm_counts, "the plain run launched a kernel")
+    full, near, held, D = compare_served(eager, plain, eager_outputs, plain_outputs)
+    print(f"eager served tokens vs the plain-attention run ({plain_wall:.2f} s): {full} of "
           f"{LM_REQUESTS} requests equal in full, {near} differ after a near-tie "
           f"(top-2 logit gap <= 2 x {D!r}, the largest logit difference on the "
           f"matching steps); {held} of {stats['generated_tokens']} tokens held "
           f"equal before each request's first near-tie", flush=True)
     for name in ATTENTION:
         counts[name] = lm_counts[name]
-    profile_lm(model, params, requests, dev, stats["decode_tick_ms_median"])
+    mark("LM plain-attention run")
+    profile_lm(model, params, requests, dev, stats["decode_tick_ms_median"], "captured")
+    with capture.disabled():
+        profile_lm(model, params, requests, dev, eager_stats["decode_tick_ms_median"], "eager")
+    session.close()
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -1532,6 +1804,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "cold_ms": row["cold_ms"], "library": row["library"], "shape": row["shape"],
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 A second package beside the JAX reference (``repro``), with the same
 layout: ``ml`` (pipelines, training), ``data`` (datasets), ``core`` (IR,
 rules, optimizer), ``sql`` (parser), ``relational`` (plans, engine),
-``exec`` (stage graph), ``tensor`` (the MLtoDNN tensor compiler),
+``exec`` (stage graph, capture, scheduler, pipelined executor),
+``tensor`` (the MLtoDNN tensor compiler),
 ``kernels`` (hand-written CUDA kernels for Hopper, with plain PyTorch
 versions) and ``session`` (the front door). It imports neither JAX nor the
 reference package, and runs on the card unless the caller passes
@@ -18,8 +19,10 @@ reference package, and runs on the card unless the caller passes
         "WHERE score >= :t"
     ).prepare(transform="dnn", params={"t": 0.5})   # or "sql"; default "none"
     print(prep.explain())
-    out = prep()                 # one-shot
-    prep.bind(t=0.8)             # same plan, no new compile
+    out = prep()                 # one-shot: one CUDA graph replay a stage
+    prep.bind(t=0.8)             # same plan, no new compile or capture
+    prep.serve()                 # bucketed, micro-batched serving
+    req = prep.submit(batch); db.flush()
 
 Lower layers (``repro_torch.core``, ``repro_torch.sql``,
 ``repro_torch.relational``) remain importable directly.
@@ -54,6 +57,10 @@ from repro_torch.session import (
     connect,
 )
 
+# after repro_torch.session, as in the reference (the session import
+# initializes the relational layer first)
+from repro_torch.exec.faults import FaultPlan, RetryPolicy, RollbackPolicy  # noqa: E402
+
 __all__ = [
     "connect",
     "Session",
@@ -76,6 +83,9 @@ __all__ = [
     "ServeOptions",
     "ModelRegistry",
     "ModelVersion",
+    "FaultPlan",
+    "RetryPolicy",
+    "RollbackPolicy",
     "FaultInjectedError",
     "TransientError",
     "TransientFaultError",

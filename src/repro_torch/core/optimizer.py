@@ -222,7 +222,7 @@ class RavenOptimizer:
         if n_host:
             report.notes.append(
                 f"lowered to {len(report.stages)} stages "
-                f"({n_host} host boundary(ies))"
+                f"({n_host} host boundary(ies) — bucketed per stage when served)"
             )
         return plan, report
 

@@ -15,17 +15,23 @@ stages: ``valid`` is the row-validity mask that makes padded serving exact,
 and ``seg`` is an optional per-row request-segment id that lets aggregates
 fold per request instead of per batch.
 
-A pure stage runs on the plan's device; PyTorch runs eagerly, so a stage
-is its composed ``env -> state`` function, called directly, with no
-tracing to count. A host stage is the interpreted ML runtime: the rows
-cross to the host once (one synchronisation, a copy down, compaction to
-the valid rows), the numpy pipeline runs over them, and its output goes
-back up as the ``__mid__`` pseudo-table the next pure stage starts from.
-The stage schema the reference's verifier and serving layer read (tables
-and columns read, ``:param`` slots) comes with those modules.
+A pure stage is its composed ``env -> state`` function; the engine
+installs a ``runner`` on it (:mod:`repro_torch.relational.engine`), which on
+the card captures the function into one CUDA graph per input shape and
+replays it (the port's ``jax.jit``), and on the CPU runs it eagerly. A host
+stage is the interpreted ML runtime: the rows cross to the host once (a
+wait on the card, a copy down, compaction to the valid rows), the numpy
+pipeline runs over them, and its output goes back up as the ``__mid__``
+pseudo-table the next pure stage starts from. Each stage also carries its
+schema: the tables and columns it reads and its ``:param`` slots.
+
+The runner (:func:`run_graph`) accepts a ``bucketer`` so the serving layer
+can re-pad rows to a power-of-two bucket at every host-boundary exit, not
+just at query entry: that keeps post-UDF stages on graphs already captured.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -33,7 +39,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.relational.expr import eval_expr
+from repro_torch.relational.expr import eval_expr, params_of
 from repro_torch.relational.table import Table, to_device
 
 # -- execution-environment keys ---------------------------------------------
@@ -50,6 +56,10 @@ ROW_SEG_KEY = "__row_seg__"
 # the sorted order on the host instead of re-sorting on the device on every
 # call; the Join step sorts in-stage only when the entry is absent.
 DIMSORT_KEY = "__dimsort__"
+# the key, in a dimsort entry, of the Join step's cache of sorted payloads
+# (built on first use): a cache, not an input, so no key of a stage runner
+# includes it
+DIMSORT_CACHE = "payloads"
 # arange(num_segment_slots): its length tells segmented aggregates their
 # output width (slot count is power-of-two bucketed)
 SEG_SLOTS_KEY = "__seg_slots__"
@@ -63,6 +73,27 @@ MID_SEG = "__seg__"
 
 # state threaded through stages: (columns, valid-mask, segment-ids-or-None)
 State = tuple[dict[str, torch.Tensor], torch.Tensor, Optional[torch.Tensor]]
+
+# env keys that are per-execution (single-use) rather than database-resident:
+# on the card a captured stage copies them into its graph's static buffers on
+# every replay (with the tables named in a run's ``donate`` set), while the
+# resident tables are read where they lie
+VOLATILE_KEYS = (ROW_VALID_KEY, ROW_SEG_KEY, MID_TABLE, PARAMS_KEY,
+                 SEG_SLOTS_KEY, SEG_COUNT_KEY)
+
+
+def donation_enabled(device) -> bool:
+    """Whether a run's donated entry inputs are dropped from the env once
+    the entry stage has consumed them (:func:`strip_consumed`), so later
+    stages neither see nor key on them. On the card the donated tables are
+    copied into the entry stage's graph buffers, which every replay reuses:
+    the port's counterpart of donating buffers to XLA. On by default on the
+    card, off on the CPU (as the reference leaves it off on XLA:CPU);
+    ``RAVEN_DONATE=1``/``0`` forces it either way."""
+    flag = os.environ.get("RAVEN_DONATE")
+    if flag is not None:
+        return flag not in ("0", "false", "")
+    return torch.device(device).type == "cuda"
 
 
 def seg_bucket(k: int, min_bucket: int = 4) -> int:
@@ -279,13 +310,17 @@ class Stage:
     """One node of the stage graph.
 
     ``kind == "pure"`` stages own a maximal pure operator segment, run as
-    ``fn`` on the plan's device; ``kind == "host"`` stages own one MLUdf
-    boundary (``udf``) and run interpreted on the host. ``fingerprint`` is a
-    canonical content hash of this stage's operators chained through every
-    upstream stage's hash. A host stage sums its time by part in
-    ``host_s``: ``sync`` (waiting for the card), ``down`` (the copy to the
-    host and the compaction to valid rows), ``udf`` (the interpreter) and
-    ``up`` (the copy back to the device).
+    ``fn`` on the plan's device through ``runner`` (captured on the card);
+    ``kind == "host"`` stages own one MLUdf boundary (``udf``) and run
+    interpreted on the host. ``fingerprint`` is a canonical content hash of
+    this stage's operators chained through every upstream stage's hash.
+    ``reads`` and ``params`` are the env tables (and their columns) and the
+    ``:param`` slots the stage reads. ``traces`` counts the stage's
+    specializations: captures on the card, first calls of an input
+    structure on the CPU. A host stage sums its time by part in ``host_s``:
+    ``sync`` (waiting for the card), ``down`` (the copy to the host and the
+    compaction to valid rows), ``udf`` (the interpreter) and ``up`` (the
+    copy back to the device).
     """
 
     index: int
@@ -293,11 +328,20 @@ class Stage:
     ops: list  # plan-node slice, innermost first
     fingerprint: str
     out_columns: tuple[str, ...]
+    reads: dict[str, tuple[str, ...]] = field(default_factory=dict)
+    params: frozenset[str] = frozenset()
     fn: Optional[Callable[[dict], State]] = None  # pure: raw env -> state
+    runner: Optional[Callable[..., State]] = None  # pure: fn behind capture
     udf: Any = None  # host: the MLUdf plan node
+    traces: int = 0
     calls: int = 0
     total_s: float = 0.0
     host_s: dict[str, float] = field(default_factory=dict)
+    # pipelined execution: executions dispatched without waiting for the
+    # card (dispatch_s is the enqueue cost), and for host stages the wall
+    # time spent on the boundary pool
+    async_calls: int = 0
+    dispatch_s: float = 0.0
 
     @property
     def label(self) -> str:
@@ -320,6 +364,10 @@ class StageGraph:
     @property
     def n_host_boundaries(self) -> int:
         return sum(1 for s in self.stages if s.kind == "host")
+
+    @property
+    def traces(self) -> int:
+        return sum(s.traces for s in self.stages)
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +458,35 @@ def _segment_out_cols(ops, in_cols: Optional[list[str]]) -> list[str]:
     return cur
 
 
+def _segment_reads(ops) -> dict[str, tuple[str, ...]]:
+    """Env tables (and their columns) this segment reads directly."""
+    from repro_torch.relational.engine import Join, Scan
+
+    reads: dict[str, list[str]] = {}
+    for op in ops:
+        if isinstance(op, Scan):
+            reads.setdefault(op.table, []).extend(op.columns)
+        elif isinstance(op, Join):
+            cols = reads.setdefault(op.dim_table, [])
+            for c in [op.dim_key, *op.dim_columns]:
+                if c not in cols:
+                    cols.append(c)
+    return {t: tuple(cs) for t, cs in reads.items()}
+
+
+def _segment_params(ops) -> frozenset[str]:
+    from repro_torch.relational.engine import Filter, Project
+
+    names: set[str] = set()
+    for op in ops:
+        if isinstance(op, Filter):
+            names |= params_of(op.expr)
+        elif isinstance(op, Project):
+            for e in op.exprs.values():
+                names |= params_of(e)
+    return frozenset(names)
+
+
 def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
     """Lower a physical plan into its :class:`StageGraph`.
 
@@ -446,7 +523,8 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
             for op in ops:
                 fn = pure_step(op, fn)
             stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
-                          out_columns=tuple(out_cols), fn=fn)
+                          out_columns=tuple(out_cols), reads=_segment_reads(ops),
+                          params=_segment_params(ops), fn=fn)
         else:
             stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
                           out_columns=tuple(out_cols), udf=ops[0])
@@ -492,6 +570,42 @@ def run_udf(udf, cols: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     return result
 
 
+def env_device(env: dict[str, Any]) -> torch.device:
+    """The device of an execution environment: that of its first tensor."""
+    walk = list(env.values())
+    while walk:
+        v = walk.pop(0)
+        if isinstance(v, torch.Tensor):
+            return v.device
+        if isinstance(v, dict):
+            walk = list(v.values()) + walk
+    raise ValueError("the environment holds no tensor")
+
+
+def call_pure(stage: Stage, env: dict[str, Any],
+              donate: frozenset = frozenset()) -> State:
+    """Invoke one pure stage: the runner when the engine installed one (it
+    knows the donated, single-use tables), else the raw composed fn."""
+    if stage.runner is not None:
+        return stage.runner(env, donate=donate)
+    return stage.fn(env)
+
+
+def strip_consumed(env: dict[str, Any], donate: frozenset) -> dict[str, Any]:
+    """Drop the entry stage's single-use inputs from the env once consumed.
+
+    Under donation (:func:`donation_enabled`) the entry stage has copied
+    the donated tables and the row-validity/segment vectors into its
+    graph's buffers, so later stages need not see them, and their keys do
+    not depend on them; without donation this is a no-op, so the env
+    structure (and every specialization already made) is unchanged from
+    the serial, non-donating layout."""
+    if not donate or not donation_enabled(env_device(env)):
+        return env
+    drop = set(donate) | {ROW_VALID_KEY, ROW_SEG_KEY}
+    return {k: v for k, v in env.items() if k not in drop}
+
+
 def host_step(
     stage: Stage,
     state: State,
@@ -499,29 +613,42 @@ def host_step(
     *,
     bucketer: Optional[Callable[[int], int]] = None,
     on_mid_bucket: Optional[Callable[[int, int], None]] = None,
+    ready: Optional["torch.cuda.Event"] = None,
 ) -> tuple[State, dict[str, Any]]:
-    """Run one MLUdf host boundary: synchronize with the device, copy the
-    upstream state to the host and compact it to valid rows, run the
+    """Run one MLUdf host boundary: wait for the upstream state on the
+    card, copy it to the host and compact it to valid rows, run the
     interpreted pipeline, re-pad the output to a shape bucket, and upload it
     as the ``__mid__`` pseudo-table.
 
+    The wait is on ``ready``, an event recorded after the upstream stage
+    was enqueued (the pipelined executor's, on another thread), or else on
+    one recorded here on the current stream: never on the whole device, so
+    other request groups' work keeps running. A graph cannot span this
+    boundary: the stages on either side are captured apart, and the
+    boundary's wait and copies run eagerly.
+
     Uploads demote 64-bit outputs to 32-bit (the interpreter's float64
     scores and int64 labels), as the reference's ``jnp.asarray`` does, so
-    the next stage computes on the reference's dtypes. ``bucketer`` (for
-    the serving layer, ROADMAP item 6) maps the compacted row count to a
-    padded bucket, so the next pure stage sees power-of-two shapes, pad
-    rows invalid; ``on_mid_bucket(stage_index, bucket)`` lets the caller
-    account the buckets.
-    Returns the new state and the env (with ``__mid__`` installed) for the
-    downstream stages.
+    the next stage computes on the reference's dtypes. ``bucketer`` (the
+    serving layer's) maps the compacted row count to a padded bucket, so
+    the next pure stage sees power-of-two shapes, pad rows invalid;
+    ``on_mid_bucket(stage_index, bucket)`` lets the caller account the
+    buckets. Returns the new state and the env (with ``__mid__`` installed)
+    for the downstream stages.
     """
-    # the reference's "udf" fault site (maybe_inject) comes with
-    # exec/faults.py: ROADMAP.md Queue 1 item 7
+    from repro_torch.exec.faults import maybe_inject
+
+    # "udf" fault site: the interpreted ML runtime raises at the host
+    # boundary (the Spark→Python-UDF failure mode), before any wait
+    maybe_inject("udf", token=stage.fingerprint)
     cols, valid, seg = state
     device = valid.device
     t0 = time.perf_counter()
     if valid.is_cuda:
-        torch.cuda.synchronize(device)
+        if ready is None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        ready.synchronize()
     t1 = time.perf_counter()
     mask = valid.cpu().numpy()
     np_cols = {k: v.cpu().numpy()[mask] for k, v in cols.items()}  # compact
@@ -568,23 +695,44 @@ class RunResult:
     timings: list[float] = field(default_factory=list)
 
 
-def run_graph(graph: StageGraph, env: dict[str, Any]) -> RunResult:
+def run_graph(
+    graph: StageGraph,
+    env: dict[str, Any],
+    *,
+    bucketer: Optional[Callable[[int], int]] = None,
+    on_mid_bucket: Optional[Callable[[int, int], None]] = None,
+    donate: frozenset = frozenset(),
+) -> RunResult:
     """Execute a stage graph over an environment, one stage at a time.
 
     Each stage's time includes its device work: on CUDA the runner
-    synchronizes after a pure stage, as the reference blocks on its results.
-    A host boundary's output runs at its exact compacted shape (the one-shot
-    path; the serving layer's bucketing goes through :func:`host_step`)."""
+    synchronizes after a pure stage (outside any capture), as the reference
+    blocks on its results. ``bucketer`` (the serving layer's) maps a host
+    boundary's compacted row count to a padded bucket, so the next pure
+    stage sees power-of-two shapes; ``on_mid_bucket(stage_index, bucket)``
+    lets the caller account those buckets. Without a ``bucketer`` the
+    boundary output runs at its exact compacted shape (the one-shot path).
+    ``donate`` names env tables that are single-use (the serving layer's
+    freshly padded fact spine, a one-shot call's batch).
+
+    The pipelined executor in :mod:`repro_torch.exec.pipeline` runs the same
+    stages (the same graphs, the same env structure) with host and device
+    work overlapped across request groups."""
     state: Optional[State] = None
     timings: list[float] = []
     for stage in graph.stages:
         t0 = time.perf_counter()
         if stage.kind == "pure":
-            state = stage.fn(env)
+            state = call_pure(stage, env, donate)
             if state[1].is_cuda:
                 torch.cuda.synchronize(state[1].device)
+            if stage.index == 0:
+                env = strip_consumed(env, donate)
         else:
-            state, env = host_step(stage, state, env)
+            state, env = host_step(
+                stage, state, env,
+                bucketer=bucketer, on_mid_bucket=on_mid_bucket,
+            )
         dt = time.perf_counter() - t0
         stage.calls += 1
         stage.total_s += dt

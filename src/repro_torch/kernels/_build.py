@@ -13,6 +13,7 @@ package on machines with no ``nvcc`` and no card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -68,12 +69,38 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 # Launches of each kernel in this process: its wrapper adds one where it
-# launches the kernel, and nowhere else. A caller that wants the launches of
-# one run sets the counts to 0 before it.
+# launches the kernel (through :func:`launched`), and nowhere else; a CUDA
+# graph's replay adds the launches recorded into it. A caller that wants the
+# launches of one run sets the counts to 0 before it.
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("featurize", "tree_gemm", "gather_join", "segment_agg", "flash_attention",
      "decode_attention"), 0
 )
+_count_lock = threading.Lock()
+_tls = threading.local()  # .tally: the launches a capture on this thread records
+
+
+def launched(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of kernel ``name``. While this thread records a
+    CUDA graph (:func:`recording`), nothing runs: the launch goes into the
+    graph's tally, which each replay adds to ``LAUNCHES``."""
+    tally = getattr(_tls, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + n
+        return
+    with _count_lock:
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording(tally: dict):
+    """Send this thread's launch counts into ``tally`` while inside."""
+    prev = getattr(_tls, "tally", None)
+    _tls.tally = tally
+    try:
+        yield tally
+    finally:
+        _tls.tally = prev
 
 
 def _sources() -> list[Path]:

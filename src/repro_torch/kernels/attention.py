@@ -12,8 +12,12 @@ Decode attention is one split-KV kernel in two passes
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
+from repro_torch.device import refuse_in_capture
 from repro_torch.kernels import _build
 
 D_MAX = 128  # the largest head dim the kernels take (a multiple of 8)
@@ -70,7 +74,7 @@ def flash_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
             B, Sq, Skv, H, KH, D, float(scale), int(bool(causal)), _build.stream_ptr(dev),
         )
     _build.check("flash_attention", err)
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.launched("flash_attention")
     return out
 
 
@@ -92,13 +96,35 @@ def decode_splits(S: int, B: int, KH: int) -> tuple[int, int]:
     return -(-S // chunk), chunk
 
 
+_caller = threading.local()  # .checked: the caller holds the lengths in [1, S]
+
+
+@contextlib.contextmanager
+def lengths_checked():
+    """Inside, :func:`decode_attention` does not read the lengths back: the
+    caller has checked its host copy of them. A captured decode tick runs
+    so (a graph cannot read device memory to the host); it checks the host
+    lengths before every replay."""
+    prev = getattr(_caller, "checked", False)
+    _caller.checked = True
+    try:
+        yield
+    finally:
+        _caller.checked = prev
+
+
 def _check_lengths(lengths: torch.Tensor, S: int) -> None:
     """Every length in [1, S]. Reading them back to the host synchronises
     with the card, so a tensor that passed is marked with its version
     counter and not read again until it changes: a decode step hands the
-    same lengths to every layer, and checks them once."""
+    same lengths to every layer, and checks them once. A capture cannot
+    read them: there the caller checks (:func:`lengths_checked`), and the
+    check raises otherwise."""
+    if getattr(_caller, "checked", False):
+        return
     if getattr(lengths, "_raven_checked", None) == (lengths._version, S):
         return
+    refuse_in_capture("decode_attention's check of the lengths")
     lo, hi = (int(x) for x in torch.aminmax(lengths))
     if lo < 1 or hi > S:
         raise ValueError(f"decode_attention: lengths span [{lo}, {hi}], must lie in [1, {S}]")
@@ -140,5 +166,5 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float) -> torch.Ten
             float(scale), n_split, chunk, _build.stream_ptr(dev),
         )
     _build.check("decode_attention", err)
-    _build.LAUNCHES["decode_attention"] += 1
+    _build.launched("decode_attention")
     return out

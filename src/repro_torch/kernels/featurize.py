@@ -195,5 +195,5 @@ def featurize(num, cat, offset, scale, cat_values, val_col, segments=None) -> to
                 int(plan.stream), plan.blocks, plan.smem, stream,
             )
         _build.check("featurize", err)
-        _build.LAUNCHES["featurize"] += 1
+        _build.launched("featurize")
     return out

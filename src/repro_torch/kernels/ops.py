@@ -14,6 +14,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.device import refuse_in_capture
 from repro_torch.kernels import ref as _ref
 
 
@@ -88,6 +89,7 @@ def tree_gemm_op(x, A, B, C, D, V, *, base: float, packed=None) -> torch.Tensor:
         from repro_torch.kernels.tree_gemm import packed_on, tree_gemm
 
         if packed is None:
+            refuse_in_capture("packing a tree_gemm program on the host")
             packed = packed_on(A, B, C, D, V, x.device)
         return tree_gemm(x.contiguous(), A, B, C, D, V, base, packed)
     Fk, F = A.shape[1], x.shape[1]
@@ -132,6 +134,7 @@ def featurize_op(num, cat, offset, scale, cat_values, cat_segments, val_col=None
         from repro_torch.kernels.featurize import featurize, segment_columns
 
         if val_col is None:
+            refuse_in_capture("copying featurize's val_col to the card")
             val_col = segment_columns(cat_segments, probe.device)
         return featurize(
             [p if p.dtype == torch.float32 else p.to(torch.float32) for p in nums],

@@ -84,7 +84,7 @@ def gather_join(fk, skeys, spay, *, records=None, lo: int = 0):
             out.data_ptr(), hit.data_ptr(), N, M, P, blocks, _build.stream_ptr(dev),
         )
     _build.check("gather_join", err)
-    _build.LAUNCHES["gather_join"] += 1
+    _build.launched("gather_join")
     return out, hit
 
 
@@ -197,5 +197,5 @@ def _segment_agg_launch(cols, w, sid, S: int, dev: torch.device):
             plan.group_segments, int(plan.stage), plan.smem, _slot(dev, stream), stream,
         )
     _build.check("segment_agg", err)
-    _build.LAUNCHES["segment_agg"] += 1
+    _build.launched("segment_agg")
     return counts, sums, mins, maxs

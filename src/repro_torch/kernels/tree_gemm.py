@@ -191,5 +191,5 @@ def tree_gemm(x, A, B, C, D, V, base: float, packed: PackedGemmProgram) -> torch
             N, Fx, T, I, L, W, chunk, int(stage_x), _build.stream_ptr(dev),
         )
     _build.check("tree_gemm", err)
-    _build.LAUNCHES["tree_gemm"] += 1
+    _build.launched("tree_gemm")
     return out

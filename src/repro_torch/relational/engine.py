@@ -2,17 +2,20 @@
 
 A plan is a tree of operators over a database (dict of named column-dicts).
 Lowering splits the plan at host boundaries (``MLUdf``) into a
-:class:`~repro_torch.exec.stages.StageGraph`: maximal pure segments run
-eagerly on the plan's device — the card unless the caller asks for the CPU
-— so an MLtoSQL-compiled model runs with the scans/joins/filters around
-it, while MLUdf stages run the interpreted numpy pipeline on the host
+:class:`~repro_torch.exec.stages.StageGraph`: maximal pure segments run on
+the plan's device — the card unless the caller asks for the CPU — each
+captured on the card into one CUDA graph per input structure and replayed
+(:mod:`repro_torch.exec.capture`, the port's ``jax.jit``), so an
+MLtoSQL-compiled model runs with the scans/joins/filters around it in one
+replay, while MLUdf stages run the interpreted numpy pipeline on the host
 (the Spark→Python-UDF→ML-runtime boundary, with its copies and per-batch
 overheads). This module owns the plan-node definitions, the host→device
-upload with its baked dim-table sorts, and the fingerprint-keyed
-compiled-plan cache on top of the stage graph.
+upload with its baked dim-table sorts, the capture/trace accounting and
+the fingerprint-keyed compiled-plan cache on top of the stage graph.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Union
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.exec.faults import maybe_inject
 from repro_torch.relational.expr import Expr
 from repro_torch.relational.table import Table, to_device
 
@@ -113,12 +117,15 @@ from repro_torch.exec.stages import (  # noqa: E402  (plan nodes must exist firs
     ROW_VALID_KEY,
     SEG_COUNT_KEY,
     SEG_SLOTS_KEY,
+    VOLATILE_KEYS,
     RunResult,
     StageGraph,
     build_stage_graph,
+    env_device,
     run_graph,
     seg_bucket,
 )
+from repro_torch.exec import capture  # noqa: E402
 
 
 def plan_fingerprint(plan: PhysicalPlan, pins: Optional[list] = None) -> str:
@@ -144,27 +151,52 @@ def plan_fingerprint(plan: PhysicalPlan, pins: Optional[list] = None) -> str:
 
 @dataclass
 class CacheStats:
-    """Module-level compiled-plan cache accounting. (The reference also
-    counts XLA traces; eager PyTorch has none to count.)"""
+    """Module-level compiled-plan cache accounting.
+
+    ``traces`` counts stage specializations across all entries, as the
+    reference counts XLA traces: on the card each is a capture of a CUDA
+    graph, on the CPU the first call of a new input structure (the CPU runs
+    eagerly). ``stage_traces`` breaks the same count down per stage
+    fingerprint. ``replays`` counts graph replays and
+    ``capture_input_copies`` the per-call inputs they copied into their
+    graphs' buffers; ``graphs``/``graph_bytes`` in the snapshot are the
+    graphs held and the card memory they hold."""
 
     hits: int = 0
     misses: int = 0
     evictions: int = 0
+    traces: int = 0
+    stage_traces: dict[str, int] = field(default_factory=dict)
+    replays: int = 0
+    capture_input_copies: int = 0
 
     def snapshot(self) -> dict[str, Any]:
-        return {"hits": self.hits, "misses": self.misses,
-                "evictions": self.evictions}
+        from repro_torch.exec import capture
+
+        graphs, graph_bytes = capture.held()
+        return {
+            "hits": self.hits, "misses": self.misses,
+            "evictions": self.evictions, "traces": self.traces,
+            "stage_traces": dict(self.stage_traces), "replays": self.replays,
+            "capture_input_copies": self.capture_input_copies,
+            "graphs": graphs, "graph_bytes": graph_bytes,
+        }
 
 
 PLAN_CACHE_STATS = CacheStats()
+_STATS_LOCK = threading.Lock()  # stage runners count from several threads
 _PLAN_CACHE: "dict[str, CompiledPlan]" = {}  # insertion-ordered: LRU via re-insert
 PLAN_CACHE_CAPACITY = 64
 
 
 def clear_plan_cache() -> None:
+    """Empty the plan cache and its accounting (the graphs captured for
+    plans still referenced elsewhere stay with their stages' runners)."""
     _PLAN_CACHE.clear()
     PLAN_CACHE_STATS.hits = PLAN_CACHE_STATS.misses = 0
-    PLAN_CACHE_STATS.evictions = 0
+    PLAN_CACHE_STATS.evictions = PLAN_CACHE_STATS.traces = 0
+    PLAN_CACHE_STATS.replays = PLAN_CACHE_STATS.capture_input_copies = 0
+    PLAN_CACHE_STATS.stage_traces.clear()
 
 
 # -- the uploaded database and its baked dim-table sort orders ---------------
@@ -245,6 +277,12 @@ class Database(dict):
         host.update(new._host)
         return Database({**self, table: new[table]}, self.device, host, (self, table))
 
+    @property
+    def replaced(self) -> frozenset:
+        """The table :meth:`replace` put in (uploaded for this database
+        only, as a one-shot call's batch is), or none."""
+        return frozenset() if self._base is None else frozenset((self._base[1],))
+
     def dimsort(self, table: str, column: str) -> dict[str, Any]:
         if self._base is not None and table != self._base[1]:
             return self._base[0].dimsort(table, column)
@@ -293,6 +331,16 @@ class CompiledPlan:
     def stages(self) -> list:
         return self.graph.stages
 
+    @property
+    def is_pure(self) -> bool:
+        """One pure stage, no host boundary (MLtoSQL/MLtoDNN output)."""
+        return self.graph.is_pure
+
+    @property
+    def traces(self) -> int:
+        """Stage specializations of this plan (captures on the card)."""
+        return self.graph.traces
+
     def _place(self, device: torch.device) -> None:
         """Move every TensorOp program to ``device`` (once per device)."""
         if self.device == device:
@@ -337,6 +385,14 @@ class CompiledPlan:
             env[DIMSORT_KEY] = ds
         return env
 
+    def _prepare(self, database, device, row_valid, params, segments, donate):
+        dev = resolve_device(device)
+        self._place(dev)
+        env = self._env(database, dev, row_valid, params, segments)
+        # a table uploaded for this call only is single-use, as a donated one
+        fresh = database.replaced if isinstance(database, Database) else frozenset()
+        return env, frozenset(donate) | fresh
+
     def run(
         self,
         database: dict,
@@ -344,20 +400,53 @@ class CompiledPlan:
         params: Optional[dict[str, Any]] = None,
         segments: Optional[tuple[np.ndarray, int]] = None,
         device=None,
+        *,
+        bucketer: Optional[Callable[[int], int]] = None,
+        on_mid_bucket: Optional[Callable[[int, int], None]] = None,
+        donate: frozenset = frozenset(),
     ) -> RunResult:
         """Execute the stage graph on ``device`` (default ``"cuda"``; raises
         when no card is available and the CPU was not asked for).
 
         ``database`` holds numpy arrays or tensors; numpy tables are
         uploaded (64-bit demoted) for this run, so a caller serving many
-        requests uploads once with :func:`upload_database`.
+        requests uploads once with :func:`upload_database` (on the card a
+        database uploaded anew is read where it lies, by graphs of its own).
         ``segments=(seg_ids, n_requests)`` threads per-row request-segment
-        ids through the graph, so aggregates fold per request.
+        ids through the graph, so aggregates fold per request. ``bucketer``
+        re-pads host-boundary outputs to shape buckets so post-UDF stages
+        stay on captured graphs; ``donate`` names tables whose buffers are
+        single-use (the serving layer's padded fact spine): a graph copies
+        them into buffers of its own on every replay.
         """
-        dev = resolve_device(device)
-        self._place(dev)
-        env = self._env(database, dev, row_valid, params, segments)
-        return run_graph(self.graph, env)
+        env, donate = self._prepare(database, device, row_valid, params, segments, donate)
+        return run_graph(self.graph, env, bucketer=bucketer,
+                         on_mid_bucket=on_mid_bucket, donate=donate)
+
+    def run_async(
+        self,
+        database: dict,
+        *,
+        executor: Any,
+        row_valid=None,
+        params: Optional[dict[str, Any]] = None,
+        segments: Optional[tuple[np.ndarray, int]] = None,
+        device=None,
+        bucketer: Optional[Callable[[int], int]] = None,
+        on_mid_bucket: Optional[Callable[[int, int], None]] = None,
+        donate: frozenset = frozenset(),
+    ):
+        """Pipelined execution: returns a ``Future[RunResult]``. Pure
+        stages are enqueued on the card from the calling thread and host
+        boundaries run on ``executor``'s boundary pool
+        (:class:`repro_torch.exec.pipeline.PipelineExecutor`); the same
+        graphs over the same env structure as :meth:`run`, so a bucket
+        warmed by either path is warm for both."""
+        env, donate = self._prepare(database, device, row_valid, params, segments, donate)
+        return executor.run_graph_async(
+            self.graph, env, bucketer=bucketer, on_mid_bucket=on_mid_bucket,
+            donate=donate,
+        )
 
     def __call__(self, database: dict, row_valid=None, params=None,
                  device=None) -> Table:
@@ -365,11 +454,80 @@ class CompiledPlan:
                         device=device).table
 
 
+class _StageRunner:
+    """A pure stage's executable: eager on the CPU, captured on the card.
+
+    On the card each key (the env's structure, shapes, dtypes and device;
+    :func:`repro_torch.exec.capture.env_key`) gets one CUDA graph, captured
+    on the key's first call and replayed after; each capture counts as a
+    trace, as a ``jax.jit`` trace does. On the CPU the stage runs eagerly
+    and each new key counts one trace, so the CPU tests hold the counts
+    against the reference's. Under :func:`capture.disabled` the stage runs
+    eagerly and counts nothing. The reference's fault sites are here:
+    ``"latency"`` and ``"stage"`` on every call, ``"compile"`` where a
+    specialization is made.
+    """
+
+    def __init__(self, stage):
+        self.stage = stage
+        self.serial = capture.new_owner(self)
+        self._seen: set = set()  # keys run on the CPU
+        self._lock = threading.Lock()
+
+    def _trace(self) -> None:
+        fp = self.stage.fingerprint
+        maybe_inject("compile", token=fp)
+        with _STATS_LOCK:
+            self.stage.traces += 1
+            PLAN_CACHE_STATS.traces += 1
+            PLAN_CACHE_STATS.stage_traces[fp] = PLAN_CACHE_STATS.stage_traces.get(fp, 0) + 1
+
+    def __call__(self, env: dict, donate: frozenset = frozenset()):
+        stage = self.stage
+        # fault sites: "latency" stalls the stage, "stage" raises at call
+        # time; tokens carry the stage fingerprint
+        maybe_inject("latency", token=stage.fingerprint)
+        maybe_inject("stage", token=stage.fingerprint)
+        if not capture.enabled():
+            return stage.fn(env)
+        key = capture.env_key(env)
+        device = env_device(env)
+        if device.type != "cuda":
+            with self._lock:
+                new = key not in self._seen
+                self._seen.add(key)
+            if new:
+                try:
+                    self._trace()
+                except BaseException:
+                    with self._lock:
+                        self._seen.discard(key)
+                    raise
+            return stage.fn(env)
+        volatile = frozenset(VOLATILE_KEYS) | frozenset(donate)
+        gkey = (self.serial, key, capture.resident_key(env, stage.reads, volatile))
+        graph, fresh = capture.lookup(gkey), False
+        if graph is None:
+            with capture.CAPTURE_LOCK:
+                graph = capture.lookup(gkey)
+                if graph is None:
+                    self._trace()
+                    graph = capture.StageCapture(stage, env, volatile, device)
+                    capture.insert(gkey, graph)
+                    fresh = True
+        state, copies = graph.replay(env, fresh=fresh)
+        with _STATS_LOCK:
+            PLAN_CACHE_STATS.replays += 1
+            PLAN_CACHE_STATS.capture_input_copies += copies
+        return state
+
+
 def _build_compiled(plan: PhysicalPlan, fingerprint: str, pins: list) -> CompiledPlan:
-    return CompiledPlan(
-        fingerprint=fingerprint, graph=build_stage_graph(plan, pins=pins),
-        pins=pins,
-    )
+    graph = build_stage_graph(plan, pins=pins)
+    for stage in graph.stages:
+        if stage.kind == "pure":
+            stage.runner = _StageRunner(stage)
+    return CompiledPlan(fingerprint=fingerprint, graph=graph, pins=pins)
 
 
 def compile_plan(plan: PhysicalPlan, cache: bool = True) -> CompiledPlan:
@@ -411,3 +569,17 @@ def execute_plan(
         database, row_valid=row_valid, params=params, device=device
     )
 
+
+def plan_params(plan: PhysicalPlan) -> set[str]:
+    """Names of every :class:`~repro_torch.relational.expr.Param` the plan
+    reads."""
+    from repro_torch.relational.expr import params_of
+
+    names: set[str] = set()
+    for p in walk_plan(plan):
+        if isinstance(p, Filter):
+            names |= params_of(p.expr)
+        elif isinstance(p, Project):
+            for e in p.exprs.values():
+                names |= params_of(e)
+    return names

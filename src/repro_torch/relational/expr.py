@@ -12,6 +12,8 @@ from typing import Any, Union
 
 import torch
 
+from repro_torch.device import refuse_in_capture
+
 Num = Union[int, float, bool]
 
 
@@ -192,10 +194,14 @@ def eval_expr(
                     f"parameter :{node.name} is unbound — pass it via "
                     f"params={{'{node.name}': value}}"
                 )
-            out[nid] = _scalar(params[node.name], device)
+            value = params[node.name]
+            if not isinstance(value, torch.Tensor):
+                refuse_in_capture(f"copying the value of :{node.name} to the card")
+            out[nid] = _scalar(value, device)
         elif isinstance(node, Const):
             key = (nid, device)
             if key not in consts:
+                refuse_in_capture("copying an expression's constant to the card")
                 consts[key] = _scalar(node.value, device)
             out[nid] = consts[key]
         elif visited:

@@ -11,7 +11,18 @@ is synchronous (``step()`` advances one decode tick). Prompts are
 left-padded with token 0 to ``prefill_len`` at positions 0..P-1 and the pad
 tokens are attended, exactly as in the reference. The caches live on
 ``device`` (the card unless ``device="cpu"``), beside the parameters, and
-each decode tick writes its K/V rows into them in place.
+each decode tick writes its K/V rows into them in place: the counterpart of
+the reference's ``donate_argnums`` on its jitted decode step.
+
+On the card the decode tick is one CUDA graph per engine (the reference
+jits it): captured on the first tick, after one eager warm-up tick on a
+side stream (:func:`repro_torch.exec.capture.record`), and replayed on every
+tick after. The graph reads the tokens and lengths from static buffers the
+engine fills before each replay, writes the caches in place and takes the
+argmax itself, so only the tokens come back to the host. A graph cannot
+read the lengths back to check them, so the engine checks its host copy
+before each replay instead. Prefill runs eagerly.
+:func:`repro_torch.exec.capture.disabled` runs the tick eagerly too.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.models.zoo import _dtype
 
 
@@ -65,6 +77,14 @@ class ServeEngine:
         self.queue: list[Request] = []
         self.finished: list[Request] = []
         self.prefill_len = 32  # fixed prompt block (pad/truncate to this)
+        # the captured decode tick (on the card): its graph, static inputs
+        # and output, the launches one replay makes, and its memory
+        self._graph = None
+        self._static: tuple = ()
+        self._launches: dict[str, int] = {}
+        self.captures = 0  # decode ticks captured (each ran once eagerly first)
+        self.replays = 0
+        self.graph_bytes = 0
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)  # a copy, never a view of `a`
@@ -133,13 +153,7 @@ class ServeEngine:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return 0
-        logits, _ = self.model.decode(
-            self.params,
-            {"tokens": self._tensor(self.last_token),
-             "lengths": self._tensor(self.lengths)},
-            (self.k_cache, self.v_cache),
-        )
-        tok = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        tok = self._tick()
         for s in active:
             self.lengths[s] += 1
             t = int(tok[s])
@@ -147,6 +161,52 @@ class ServeEngine:
             self.last_token[s] = t
             self._maybe_finish(s)
         return len(active)
+
+    def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """One decode step over all slots: the next token of each, on the
+        card (the K/V rows written into the caches in place)."""
+        logits, _ = self.model.decode(
+            self.params, {"tokens": tokens, "lengths": lengths},
+            (self.k_cache, self.v_cache),
+        )
+        return logits.argmax(-1).to(torch.int32)
+
+    def _tick(self) -> np.ndarray:
+        """One decode tick: eager on the CPU (and under
+        ``capture.disabled()``), a graph replay on the card."""
+        from repro_torch.exec import capture
+
+        if self.device.type != "cuda" or not capture.enabled():
+            return self._decode(self._tensor(self.last_token),
+                                self._tensor(self.lengths)).cpu().numpy()
+        # the check decode_attention cannot make inside a graph: every
+        # slot attends its rows and the new one, within the cache
+        lo, hi = int(self.lengths.min()), int(self.lengths.max())
+        if lo < 0 or hi + 1 > self.cache_len:
+            raise ValueError(f"decode tick: lengths span [{lo}, {hi}], must lie in "
+                             f"[0, {self.cache_len - 1}]")
+        if self._graph is None:
+            from repro_torch.kernels.attention import lengths_checked
+
+            tokens, lengths = self._tensor(self.last_token), self._tensor(self.lengths)
+
+            def tick():
+                with lengths_checked():
+                    return self._decode(tokens, lengths)
+
+            self._graph, out, self._launches, pool = capture.record(tick, self.device)
+            self._static = (tokens, lengths, out)
+            self.graph_bytes = pool + tokens.nbytes + lengths.nbytes
+            self.captures += 1
+        else:
+            tokens, lengths, _ = self._static
+            tokens.copy_(torch.from_numpy(self.last_token))
+            lengths.copy_(torch.from_numpy(self.lengths))
+        self._graph.replay()
+        self.replays += 1
+        for name, n in self._launches.items():
+            _build.launched(name, n)
+        return self._static[2].cpu().numpy()
 
     def run(self, max_ticks: int = 10_000) -> list[Request]:
         for _ in range(max_ticks):

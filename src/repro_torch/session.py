@@ -21,22 +21,25 @@ IR, the optimizer and the engine, on the port's device::
     out = prep()                 # one-shot execution, numpy columns out
     prep.bind(t=0.9)             # re-bind: same plan, no new compile
     out = prep(batch)            # a batch replaces the fact table's rows
-    db.cache_stats()             # plan-cache accounting and the models
+    prep.serve()                 # bucketed, micro-batched, captured serving
+    req = prep.submit(batch)     # ...then db.flush(), or a pump
+    db.cache_stats()             # plan-cache, capture and server accounting
 
 ``:param`` placeholders lower to canonical ``Param`` slots that hash by name,
 so a prepared plan re-binds thresholds without re-optimizing, re-compiling,
 or changing its fingerprint. The session uploads its tables to its device
 once, at :func:`connect`; a call uploads only the ``batch`` it is given.
 
-What needs serving, a cache directory, the verifier or fault injection
-raises ``NotImplementedError`` naming the ROADMAP item that ports it:
-``serve``/``submit``/``flush``/``server`` item 6, ``cache_dir``/
-``cache_max_bytes``/``recover``/``faults`` item 7, ``verify`` item 8, and a
-runtime-selection ``strategy`` item 9.
+What needs a cache directory, the verifier or the model lifecycle raises
+``NotImplementedError`` naming the ROADMAP item that ports it:
+``cache_dir``/``cache_max_bytes``/``recover``/``faults`` and a circuit
+breaker item 7, ``verify`` item 8, and a runtime-selection ``strategy``
+item 9.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -51,7 +54,7 @@ from repro_torch.core.optimizer import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.errors import RavenError, UnknownTableError, check_params
-from repro_torch.options import ConnectOptions
+from repro_torch.options import ConnectOptions, ServeOptions
 from repro_torch.relational.engine import (
     PLAN_CACHE_STATS,
     PhysicalPlan,
@@ -61,6 +64,7 @@ from repro_torch.relational.engine import (
     walk_plan,
 )
 from repro_torch.relational.expr import Const, Expr, Param
+from repro_torch.serve.query_server import PredictionQueryServer, QueryRequest
 from repro_torch.serve.registry import ModelRegistry
 from repro_torch.sql.parser import (
     QuerySpec,
@@ -71,10 +75,6 @@ from repro_torch.sql.parser import (
     parse_spec,
 )
 
-SERVING_NOT_PORTED = (
-    "serving (the bucketed, micro-batched query server) is not ported yet: "
-    "ROADMAP.md Queue 1 item 6, serving"
-)
 PERSISTENCE_NOT_PORTED = (
     "is not ported yet: ROADMAP.md Queue 1 item 7, persistence and lifecycle"
 )
@@ -179,6 +179,8 @@ class Session:
         self.models = ModelRegistry()
         # the tables on the session's device, once: every call runs on these
         self.database = upload_database(self.tables, self.device)
+        self._server: Optional[PredictionQueryServer] = None
+        self._names = itertools.count()
 
     # -- registration --------------------------------------------------------
 
@@ -203,14 +205,26 @@ class Session:
             )
         return QueryBuilder(self, QuerySpec(base=name))
 
-    # -- not ported yet ------------------------------------------------------
+    # -- serving -------------------------------------------------------------
 
     @property
-    def server(self):
-        raise NotImplementedError(SERVING_NOT_PORTED)
+    def server(self) -> PredictionQueryServer:
+        """The session-owned :class:`PredictionQueryServer` (created lazily,
+        on the session's device)."""
+        if self._server is None:
+            self._server = PredictionQueryServer(
+                options=self.options, device=self.device
+            )
+        return self._server
 
-    def flush(self):
-        raise NotImplementedError(SERVING_NOT_PORTED)
+    def flush(self) -> list[QueryRequest]:
+        """Execute everything submitted to served queries (micro-batched)."""
+        return self._server.flush() if self._server is not None else []
+
+    def _next_name(self) -> str:
+        return f"q{next(self._names)}"
+
+    # -- not ported yet ------------------------------------------------------
 
     def recover(self) -> dict:
         raise NotImplementedError(f"registry recovery {PERSISTENCE_NOT_PORTED}")
@@ -218,14 +232,26 @@ class Session:
     # -- accounting ----------------------------------------------------------
 
     def cache_stats(self) -> dict:
-        """The compiled-plan cache's snapshot (``hits``/``misses``/
-        ``evictions``) and the model registry's under ``"models"``."""
+        """Compiled-plan cache and serving accounting, in one snapshot: the
+        engine's :class:`~repro_torch.relational.engine.CacheStats`
+        (``hits``/``misses``/``traces``, per-stage ``stage_traces``, graph
+        ``replays`` and ``capture_input_copies``, the ``graphs`` held and
+        their ``graph_bytes``), the session server's counters under
+        ``"server"`` (with the scheduler's queue gauges, the pipelined
+        executor's under ``"pipeline"`` and ``recompiles``), and the model
+        registry's under ``"models"``."""
         out = PLAN_CACHE_STATS.snapshot()
+        if self._server is not None:
+            out["server"] = self._server.stats_snapshot()
+            out["server"]["recompiles"] = self._server.recompiles()
         out["models"] = self.models.snapshot()
         return out
 
     def close(self) -> None:
-        """Nothing to release yet: no server, store or fault plan."""
+        """Stop the server's pump (it drains pending requests first) and
+        release its boundary pool."""
+        if self._server is not None:
+            self._server.shutdown()
 
     def __enter__(self) -> "Session":
         return self
@@ -371,11 +397,20 @@ class PreparedQuery:
         self.params = dict(params)
         self.compiled = compile_plan(plan)
         self.param_names = query.param_names()
+        self._serve_name: Optional[str] = None
+        self._serve_token: Optional[str] = None
+        self._serve_options: Optional[ServeOptions] = None
+        self._server: Optional[PredictionQueryServer] = None
 
     @property
     def fingerprint(self) -> str:
         """Content hash of the physical plan (the compiled-plan cache key)."""
         return self.compiled.fingerprint
+
+    @property
+    def name(self) -> Optional[str]:
+        """The name this query is served under (None until :meth:`serve`)."""
+        return self._serve_name
 
     # -- parameter binding ---------------------------------------------------
 
@@ -386,6 +421,8 @@ class PreparedQuery:
         new = {**(_params or {}), **kw}
         check_params(self.param_names, new, require_all=False, context="query")
         self.params.update(new)
+        if self._server is not None:
+            self._server.rebind(self._serve_name, new)
         return self
 
     # -- one-shot execution --------------------------------------------------
@@ -424,13 +461,83 @@ class PreparedQuery:
             return base
         return next(s.table for s in walk_plan(self.plan) if isinstance(s, Scan))
 
-    # -- not ported yet ------------------------------------------------------
+    # -- serving -------------------------------------------------------------
 
-    def serve(self, *args, **kwargs) -> "PreparedQuery":
-        raise NotImplementedError(SERVING_NOT_PORTED)
+    def serve(
+        self,
+        name: Optional[str] = None,
+        server: Optional[PredictionQueryServer] = None,
+        *,
+        options: Optional[ServeOptions] = None,
+        max_latency_ms: Optional[float] = None,
+        max_pending: Optional[int] = None,
+        max_coalesce: Optional[int] = None,
+    ) -> "PreparedQuery":
+        """Register into the session-owned server (bucketed, coalesced,
+        captured hot path): afterwards ``prep.submit(batch)`` enqueues.
 
-    def submit(self, *args, **kwargs):
-        raise NotImplementedError(SERVING_NOT_PORTED)
+        ``options`` is the typed surface (:class:`ServeOptions`); the loose
+        keywords keep working through a :class:`DeprecationWarning` shim,
+        and a keyword conflicting with the bundle raises. With
+        ``max_latency_ms`` a background pump flushes automatically once this
+        query's oldest pending request has waited that long (results arrive
+        via ``request.wait()``); without it the caller drives
+        ``db.flush()``. ``max_pending`` bounds this query's queue (a submit
+        against a full queue blocks or raises
+        :class:`~repro_torch.errors.ServerOverloadedError`), ``max_coalesce``
+        caps the rows one dispatched group may coalesce. The server reads
+        the session's tables where they lie on its device; each group
+        uploads only its padded batch. A ``breaker_threshold`` raises
+        (ROADMAP.md Queue 1 item 7).
+        """
+        sopts = ServeOptions.resolve(
+            options, max_latency_ms=max_latency_ms,
+            max_pending=max_pending, max_coalesce=max_coalesce,
+        )
+        self._serve_options = sopts
+        session = self.query.session
+        srv = server if server is not None else session.server
+        self._serve_name = name or session._next_name()
+        reg = srv.register(
+            self._serve_name, self.query.ir, session.database,
+            fact_table=self._fact_table(),
+            optimized=(self.plan, self.report),
+            params=self.params,
+            max_latency_ms=sopts.max_latency_ms,
+            max_pending=sopts.max_pending,
+            max_coalesce=sopts.max_coalesce,
+            donate=sopts.donate,
+            retry=sopts.retry,
+            breaker_threshold=sopts.breaker_threshold,
+        )
+        self._serve_token = reg.token
+        self._server = srv
+        if sopts.max_latency_ms is not None:
+            srv.start_pump(sopts.max_latency_ms)
+        return self
+
+    def submit(
+        self,
+        columns: dict[str, np.ndarray],
+        *,
+        block: bool = True,
+        timeout: Optional[float] = None,
+    ) -> QueryRequest:
+        """Enqueue one fact-row batch (requires :meth:`serve` first); results
+        land on the returned request after ``db.flush()`` — or, when the
+        query is served with a latency target, after the pump's next flush
+        (``request.wait()``). Submitting through a handle whose serve name
+        was since re-registered raises
+        :class:`~repro_torch.errors.StaleQueryError`; a submit against a
+        full bounded queue blocks up to ``timeout`` seconds or
+        (``block=False``) raises
+        :class:`~repro_torch.errors.ServerOverloadedError`."""
+        if self._server is None:
+            raise RavenError("query is not served — call .serve() before .submit()")
+        return self._server.submit(
+            self._serve_name, columns, expect_token=self._serve_token,
+            block=block, timeout=timeout,
+        )
 
     # -- introspection -------------------------------------------------------
 
@@ -448,6 +555,8 @@ class PreparedQuery:
             lines.append(f"params: {binds}")
         lines.append("-- resolved options " + "-" * 35)
         lines.append(f"connect: {session.connect_options.describe()}")
+        if self._serve_options is not None:
+            lines.append(f"serve:   {self._serve_options.describe()}")
         lines.append(f"device:  {session.device}")
         model_ref = self.query.spec.model
         if model_ref is not None:

@@ -512,9 +512,13 @@ def emit_join_kernel(plan, dim, fk, ds):
     from repro_torch.kernels.ops import gather_join_op
     from repro_torch.kernels.relational import dense_records
 
-    payloads = ds.setdefault("payloads", {})
+    from repro_torch.device import refuse_in_capture
+    from repro_torch.exec.stages import DIMSORT_CACHE
+
+    payloads = ds.setdefault(DIMSORT_CACHE, {})
     cols = tuple(plan.dim_columns)
     if cols not in payloads:
+        refuse_in_capture("building the join's sorted payload and records")
         order = ds["order"]
         spay = torch.stack([dim[c][order] for c in cols], dim=1).to(torch.float32)
         records = dense_records(ds["index"], spay) if "index" in ds else None

@@ -9,6 +9,12 @@ tests/test_torch_cuda.py``. ``featurize``, ``gather_join`` and
 sum over trees); the two attention kernels within ``atol=2e-5`` in float32
 and ``2e-2`` in bfloat16 (the reference's kernel-sweep tolerances: the
 online softmax sums in another order than the plain version's full one).
+Capture and serving on the card: every plan of the main path captured
+(one CUDA graph a pure stage and shape) equals its eager run bitwise, a
+``segment_agg`` stage replays 50 times bitwise, the captured decode tick
+serves the eager tick's tokens, the served hospital query equals its
+one-shot call and a warm bucket captures nothing, and a lazy cache or a
+host read reached while capturing raises.
 """
 from __future__ import annotations
 
@@ -214,17 +220,22 @@ def test_hospital_query_on_the_card_matches_the_cpu(dev):
     i = len(s) // 2 + int(np.argmax(np.diff(s[len(s) // 2:][:1001])))
     assert s[i + 1] - s[i] >= 2e-5
     t = float((s[i] + s[i + 1]) / 2)
-    # one plan, run on the card (GEMM through the kernels), then on the CPU
-    # (traversal), then on the card again
+    # one plan, run on the card (GEMM through the kernels, captured), then on
+    # the CPU (traversal), then on the card again: a replay of the graph, one
+    # tree_gemm launch (the tables are uploaded once, so the graph reads them
+    # where they lie)
+    from repro_torch.relational.engine import upload_database
+
+    db = upload_database(infer.tables, dev)
     counts = (LAUNCHES["featurize"], LAUNCHES["tree_gemm"], LAUNCHES["segment_agg"])
-    got = cp.run(infer.tables, params={"t": t}).table
+    got = cp.run(db, params={"t": t}).table
     assert got.valid.is_cuda
     got = got.to_numpy()
     after = (LAUNCHES["featurize"], LAUNCHES["tree_gemm"], LAUNCHES["segment_agg"])
     assert all(a > b for a, b in zip(after, counts))
     want = cp.run(infer.tables, params={"t": t}, device="cpu").table.to_numpy()
     assert LAUNCHES["tree_gemm"] == after[1]
-    again = cp.run(infer.tables, params={"t": t}).table.to_numpy()
+    again = cp.run(db, params={"t": t}).table.to_numpy()
     assert LAUNCHES["tree_gemm"] == after[1] + 1
     assert np.array_equal(got["count_rows"], want["count_rows"])
     np.testing.assert_allclose(got["mean_score"], want["mean_score"], rtol=1e-5)
@@ -322,8 +333,10 @@ def test_tree_gemm_kernel_non_finite_rows_and_repeatable(dev, align, W, wide):
 
 def test_compiled_plan_reaches_the_kernel_with_its_packed_program(dev, monkeypatch):
     """``compile_plan`` → ``run`` on the card: the GEMM step hands the kernel
-    the program packed at compile time (packing per call raises here), one
-    launch a run."""
+    the program packed at compile time (packing per call raises here). The
+    first run calls the step twice, in the eager warm-up (one launch) and in
+    the capture (no launch), and replays the graph (one launch); a second
+    run replays only: one launch, no Python call of the wrapper."""
     import repro_torch.kernels.tree_gemm as tg
     from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
     from repro_torch.data.datasets import make_hospital
@@ -345,12 +358,18 @@ def test_compiled_plan_reaches_the_kernel_with_its_packed_program(dev, monkeypat
     real = tg.tree_gemm
     monkeypatch.setattr(tg, "tree_gemm", lambda *a: seen.append(a[7]) or real(*a))
     monkeypatch.setattr(tg, "packed_on", lambda *a: pytest.fail("packed per call"))
+    from repro_torch.relational.engine import upload_database
+
+    db = upload_database(infer.tables, dev)
     before = LAUNCHES["tree_gemm"]
-    out = cp.run(infer.tables).table.to_numpy()
-    assert LAUNCHES["tree_gemm"] == before + 1
-    assert len(seen) == 1 and isinstance(seen[0], tg.PackedGemmProgram)
+    out = cp.run(db).table.to_numpy()
+    assert LAUNCHES["tree_gemm"] == before + 2
+    assert len(seen) == 2 and isinstance(seen[0], tg.PackedGemmProgram)
+    assert all(a is b for a, b in zip(*seen))  # the same packed tensors
     assert all(a.is_cuda and a.dtype == torch.int32 for a in seen[0])
     assert out["count_rows"].tolist() == [3000]
+    assert cp.run(db).table.to_numpy()["count_rows"].tolist() == [3000]
+    assert LAUNCHES["tree_gemm"] == before + 3 and len(seen) == 2
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +497,9 @@ def test_gather_join_kernel_routes_bitwise(dev, name):
 def test_join_step_on_the_card_reads_the_index_and_a_payload_built_once(dev, monkeypatch):
     """The dashboard join on an uploaded database: the op gets the dense
     records built from the dimsort entry's index, and the same sorted
-    payload and records on every run."""
+    payload and records on every run. The runs are eager
+    (``capture.disabled()``): a replay calls no Python step."""
+    from repro_torch.exec import capture
     from repro_torch.relational import engine as teng
     from repro_torch.relational.expr import Bin, Col, Const
 
@@ -497,7 +518,8 @@ def test_join_step_on_the_card_reads_the_index_and_a_payload_built_once(dev, mon
     db = teng.upload_database(tables, dev)
     cp = teng.compile_plan(plan, cache=False)
     before = LAUNCHES["gather_join"]
-    outs = [cp.run(db).table.to_numpy() for _ in range(2)]
+    with capture.disabled():
+        outs = [cp.run(db).table.to_numpy() for _ in range(2)]
     host = teng.compile_plan(plan, cache=False).run(tables, device="cpu").table.to_numpy()
     assert LAUNCHES["gather_join"] == before + 2
     (a0, k0), (a1, k1) = calls[:2]
@@ -830,7 +852,9 @@ def test_host_runtime_and_mltosql_on_the_card_match_the_cpu(dev, transform, spli
     """The split plan (featurize before the host boundary, tree_gemm and
     segment_agg after it), the interpreter behind one MLUdf and MLtoSQL's
     CASE expressions, run on the card and on the CPU from one compiled
-    plan: COUNT equal, AVG within rtol 1e-5; no cut column in the result."""
+    plan: COUNT equal, AVG within rtol 1e-5; no cut column in the result.
+    The launches counted are a warm run's (its graphs captured by the first
+    run): one of each kernel the plan reaches."""
     from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
     from repro_torch.relational.engine import compile_plan
     from repro_torch.sql.parser import parse_prediction_query
@@ -844,8 +868,12 @@ def test_host_runtime_and_mltosql_on_the_card_match_the_cpu(dev, transform, spli
     want_kinds = {"dnn": ["pure", "host", "pure"], "none": ["pure", "host", "pure"],
                   "sql": ["pure"]}[transform]
     assert [s.kind for s in cp.stages] == want_kinds
+    from repro_torch.relational.engine import upload_database
+
+    db = upload_database(infer.tables, dev)
+    cp.run(db, params={"t": t})
     before = dict(LAUNCHES)
-    got = cp.run(infer.tables, params={"t": t}).table
+    got = cp.run(db, params={"t": t}).table
     assert got.valid.is_cuda
     got = got.to_numpy()
     ran = {k: LAUNCHES[k] - before[k] for k in ("featurize", "tree_gemm", "segment_agg")}
@@ -891,3 +919,260 @@ def test_split_execution_on_the_card_matches_host_bitwise(dev, udf_pos):
     want = np.asarray(run_pipeline(pipe, {"x0": x})[final], np.float32).reshape(-1)
     got = np.asarray(out[final], np.float32).reshape(-1)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# Capture: pure stages and the decode tick as CUDA graphs; the query server
+# ---------------------------------------------------------------------------
+
+HOSPITAL_AGG = ("SELECT COUNT(*), AVG(score) FROM PREDICT(model='m', data=patients) "
+                "AS p WHERE score >= :t")
+
+
+def _hospital_session(dev, split: bool):
+    import repro_torch as raven
+
+    pipe, infer, t = _hospital_on_both(split)
+    db = raven.connect(infer.tables, device=dev)
+    db.register_model("m", pipe)
+    return db, t
+
+
+def _assert_bitwise(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(_bits(torch.from_numpy(np.asarray(got[k]))),
+                              _bits(torch.from_numpy(np.asarray(want[k])))), k
+
+
+@pytest.mark.parametrize("transform,split", [("dnn", False), ("dnn", True),
+                                             ("none", False), ("sql", False)])
+def test_captured_hospital_plans_equal_eager_bitwise(dev, transform, split):
+    """The hospital query through the front door, captured (one graph a
+    pure stage) and eager (``capture.disabled()``): bitwise equal results;
+    a second call of the same shapes captures nothing and replays."""
+    from repro_torch.exec import capture
+    from repro_torch.relational.engine import PLAN_CACHE_STATS, clear_plan_cache
+
+    clear_plan_cache()  # a plan of its own: no graph of another test's
+    db, t = _hospital_session(dev, split)
+    prep = db.sql(HOSPITAL_AGG).prepare(transform=transform, params={"t": t})
+    pure = sum(st.kind == "pure" for st in prep.compiled.stages)
+    captured = prep()
+    assert prep.compiled.traces == pure
+    replays = PLAN_CACHE_STATS.replays
+    again = prep.bind(t=t)()
+    assert prep.compiled.traces == pure and PLAN_CACHE_STATS.replays == replays + pure
+    with capture.disabled():
+        eager = prep()
+    assert captured["count_rows"][0] > 0
+    _assert_bitwise(captured, eager)
+    _assert_bitwise(again, eager)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_captured_dashboard_plan_equals_eager_bitwise(dev, segmented):
+    """Filter→join→aggregate over an uploaded star schema (gather_join and
+    segment_agg in one graph), global and in 6 segments: captured equals
+    eager bitwise, once captured and then replayed."""
+    from repro_torch.exec import capture
+    from repro_torch.relational import engine as teng
+    from repro_torch.relational.expr import Bin, Col, Const
+
+    rng = np.random.default_rng(6)
+    tables = {"d": {"k": np.arange(4096, dtype=np.int64), "v": _dyadic(rng, 4096)},
+              "f": {"fk": rng.integers(0, 5000, 200_000).astype(np.int64),
+                    "x": _dyadic(rng, 200_000)}}
+    plan = teng.Aggregate(
+        teng.Filter(teng.Join(teng.Scan("f", ["fk", "x"]), "d", "fk", "k", ["v"]),
+                    Bin("gt", Col("x"), Const(0.0))),
+        [("n", "count", "x"), ("s", "sum", "v"), ("a", "mean", "x"),
+         ("lo", "min", "v"), ("hi", "max", "x")])
+    seg = np.sort(rng.integers(0, 6, 200_000)).astype(np.int32)
+    segments = (seg, 6) if segmented else None
+    db = teng.upload_database(tables, dev)
+    cp = teng.compile_plan(plan, cache=False)
+    runs = [cp.run(db, segments=segments).table.to_numpy() for _ in range(2)]
+    assert cp.traces == 1
+    with capture.disabled():
+        eager = cp.run(db, segments=segments).table.to_numpy()
+    for got in runs:
+        _assert_bitwise(got, eager)
+
+
+def test_segment_agg_in_a_captured_stage_replays_50_times_bitwise(dev):
+    """A segmented aggregate stage, captured once and replayed 50 times on
+    two alternating sets of segment ids (copied into the graph's buffer
+    each replay): every result bitwise the eager run's; the kernel's fold
+    counter resets itself at every replay."""
+    from repro_torch.exec import capture
+    from repro_torch.relational import engine as teng
+    from repro_torch.relational.engine import PLAN_CACHE_STATS
+
+    rng = np.random.default_rng(9)
+    n = 300_000
+    tables = {"f": {"x": _dyadic(rng, n), "y": _dyadic(rng, n)}}
+    plan = teng.Aggregate(teng.Scan("f", ["x", "y"]),
+                          [("n", "count", "x"), ("s", "sum", "x"), ("m", "max", "y")])
+    segs = [(rng.integers(0, 8, n).astype(np.int32), 8) for _ in range(2)]
+    db = teng.upload_database(tables, dev)
+    cp = teng.compile_plan(plan, cache=False)
+    with capture.disabled():
+        want = [cp.run(db, segments=s).table.to_numpy() for s in segs]
+    cp.run(db, segments=segs[0])
+    copies = PLAN_CACHE_STATS.capture_input_copies
+    for i in range(50):
+        _assert_bitwise(cp.run(db, segments=segs[i % 2]).table.to_numpy(), want[i % 2])
+    assert cp.traces == 1
+    assert PLAN_CACHE_STATS.capture_input_copies > copies
+
+
+def test_captured_decode_tick_serves_the_eager_tokens(dev):
+    """Reduced granite-3-8b served with the decode tick captured (one graph
+    for the engine, replayed every tick) and eagerly: the same tokens."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.exec import capture
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced_config("granite-3-8b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (5, 32, 17, 9, 40)]
+
+    def serve():
+        eng = ServeEngine(model, params, n_slots=2, cache_len=64, device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(pr, max_new_tokens=4 + i)
+        return eng, [r.output for r in sorted(eng.run(max_ticks=200), key=lambda r: r.rid)]
+
+    eng, captured = serve()
+    assert eng.captures == 1 and eng.replays > 1
+    with capture.disabled():
+        eager_eng, eager = serve()
+    assert eager_eng.captures == 0 and captured == eager
+
+
+def test_served_hospital_query_equals_one_shot_and_warm_buckets_capture_nothing(dev):
+    """``prep.serve()`` → ``submit`` → ``flush`` on the card: each request's
+    answer equals the same prepared query's one-shot call on its batch
+    (COUNT equal, AVG within rtol 1e-5: padding changes the order of the
+    kernel's sums); a second pass over the same buckets captures nothing."""
+    from repro_torch.data.datasets import make_hospital
+
+    db, t = _hospital_session(dev, False)
+    prep = db.sql(HOSPITAL_AGG).prepare(transform="dnn", params={"t": t}).serve()
+    batches = [make_hospital(n, seed=10 + i).tables["patients"]
+               for i, n in enumerate((1, 37, 64, 65, 300, 1000))]
+    reqs = [prep.submit(b) for b in batches]
+    db.flush()
+    assert db.server.recompiles() >= 1
+    for r, b in zip(reqs, batches):
+        want = prep(b)  # one-shot: exact shapes, graphs of their own
+        assert np.array_equal(r.result["count_rows"], want["count_rows"])
+        np.testing.assert_allclose(r.result["mean_score"], want["mean_score"], rtol=1e-5)
+    recompiles = db.server.recompiles()
+    again = [prep.submit(b) for b in batches]
+    db.flush()
+    assert db.server.recompiles() == recompiles
+    for r, first in zip(again, reqs):
+        _assert_bitwise(r.result, first.result)
+    db.close()
+
+
+@pytest.mark.parametrize("transform,split", [("none", False), ("dnn", True)])
+def test_served_host_boundary_plans_equal_one_shot(dev, transform, split):
+    """Plans with a host boundary served on the card through the pipelined
+    executor: the boundary runs on a pool thread after an event behind its
+    upstream graph, the coalesced group is split on segment ids; each
+    answer equals the one-shot call on its batch (COUNT equal, AVG within
+    rtol 1e-5), flushed and with the pump on."""
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.exec import capture
+
+    db, t = _hospital_session(dev, split)
+    prep = db.sql(HOSPITAL_AGG).prepare(transform=transform, params={"t": t}).serve()
+    batches = [make_hospital(n, seed=30 + i).tables["patients"]
+               for i, n in enumerate((1, 200, 700, 64))]
+    with capture.disabled():
+        wants = [prep(b) for b in batches]
+    for pump in (False, True):
+        if pump:
+            db.server.start_pump(5.0)
+        reqs = [prep.submit(b) for b in batches]
+        if pump:
+            outs = [r.wait(timeout=60.0) for r in reqs]
+            db.server.stop_pump()
+        else:
+            db.flush()
+            outs = [r.result for r in reqs]
+        for out, want in zip(outs, wants):
+            assert np.array_equal(out["count_rows"], want["count_rows"])
+            np.testing.assert_allclose(out["mean_score"], want["mean_score"], rtol=1e-5)
+    assert db.server.stats.segmented_batches >= 1
+    db.close()
+
+
+def _capture_raises(dev, call):
+    from repro_torch.device import CaptureError
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            with pytest.raises(CaptureError):
+                call()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def test_lazy_caches_and_host_reads_raise_while_capturing(dev):
+    """Inside a capture, reaching what the eager warm-up must build (an
+    expression's constant, featurize's ``val_col``, a tree program's
+    packing, a join's sorted payload) or a read back to the host
+    (decode_attention's check of the lengths) raises; nothing is copied
+    from host memory into the graph."""
+    from repro_torch.relational.engine import Join, Scan, dimsort_entry
+    from repro_torch.relational.expr import Bin, Col, Const, eval_expr
+    from repro_torch.tensor.compile import emit_join_kernel
+
+    x = torch.arange(16, dtype=torch.float32, device=dev)
+    _capture_raises(dev, lambda: eval_expr(Bin("gt", Col("x"), Const(3.0)), {"x": x},
+                                           consts={}))
+    rng = np.random.default_rng(2)
+    args = _featurize_columns(rng, 1000, 3, (2, 3), dev)
+    _capture_raises(dev, lambda: ops.featurize_op(*args))
+    A, B, C, D, V = (torch.tensor(a, device=dev) for a in ops.pad_gemm_program(
+        *_full_tree_program(2, 3, 5, rng)))
+    xt = torch.zeros((10, 5), device=dev)
+    _capture_raises(dev, lambda: ops.tree_gemm_op(xt, A, B, C, D, V, base=0.0))
+    q = torch.zeros((2, 4, 64), device=dev)
+    kc = torch.zeros((2, 16, 1, 64), device=dev)
+    lengths = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    _capture_raises(dev, lambda: ops.decode_attention_op(q, kc, kc, lengths))
+    dim = {"k": torch.arange(8, dtype=torch.int32, device=dev),
+           "v": torch.ones(8, device=dev)}
+    ds = dimsort_entry(np.arange(8, dtype=np.int32), dev)
+    join = Join(Scan("f", ["fk"]), "d", "fk", "k", ["v"])
+    fk = torch.arange(4, dtype=torch.int32, device=dev)
+    _capture_raises(dev, lambda: emit_join_kernel(join, dim, fk, ds))
+
+
+def test_kernels_launch_on_the_capturing_stream(dev):
+    """The ctypes launches take PyTorch's current stream: inside a capture,
+    the capturing stream."""
+    from repro_torch.kernels import _build
+
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            ptr = _build.stream_ptr(dev)
+        finally:
+            graph.capture_end()
+    assert ptr == side.cuda_stream
