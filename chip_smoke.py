@@ -36,8 +36,11 @@ runs a split plan (a pipeline with a host-only op, lowered to
 ``TensorOp → MLUdf → TensorOp``: ``featurize`` before the host boundary,
 ``tree_gemm`` and ``segment_agg`` after it);
 the served phase registers the hospital query with the query server
-(``prep.serve()`` → ``prep.submit`` → ``db.flush()``, or the pump); and a
-third path serves an LM through ``build_model(get_config(...)).init`` →
+(``prep.serve()`` → ``prep.submit`` → ``db.flush()``, or the pump); the
+strategy phase builds a corpus of pipelines measured under the three
+runtimes on the card and prepares the hospital query through
+``connect(strategy=...)``; the verify phase prepares every plan under
+``verify="strict"``; and a third path serves an LM through ``build_model(get_config(...)).init`` →
 ``ServeEngine.submit`` → ``ServeEngine.run``, its decode tick one CUDA graph:
 
 * granite-3-8b at its published width and full depth (d_model 4096, 40
@@ -121,7 +124,32 @@ In order it
    repeats the first bit for bit; a third with the pump on
    (``max_latency_ms=5``), a fourth through the serial runner; request
    latency (median, max) and rows a second of each;
-8. zeroes the counts again and serves the LM workload with the decode tick
+8. the strategy phase: ``build_corpus`` trains 12 pipelines of seed 0 (the
+   reference's pipelines for that seed) and times each under ``none``,
+   ``sql`` and ``dnn`` on 20,000 rows on the card (the first call of each
+   dropped: it captures), printing each pipeline's spec, its three times and
+   its label, and each runtime's share of the labels; fits the rule-based,
+   classification and regression strategies on it, prints the rule, and
+   lets each choose a runtime for the hospital pipeline; prepares the
+   hospital query through ``connect(strategy=...)`` (the rule-based one),
+   checks ``report.transforms`` is its choice and the answers against the
+   host oracle (under ``sql``, against the port's CPU run); prints the
+   capture cache's graphs, bytes and evictions before and after, and
+   checks that the corpus left no graph of its own and evicted none;
+9. the verify phase: the hospital query under ``dnn``, ``sql`` and ``none``
+   and the split plan prepared with ``verify="off"``, ``"strict"`` (the
+   abstract runs of its stages on the card, the exec memo cleared) and
+   ``"strict"`` again (the memo's hit), with their prepare times and
+   verification lines; the strictly prepared ``dnn`` plan against the host
+   oracle; the dashboard plan through ``verify_plan`` on the uploaded star
+   schema; a ``dnn`` plan straight from the optimizer (its tensor programs
+   built on the CPU) through ``verify_plan`` on the session's database,
+   which moves them to the card and launches the kernels there; then that
+   plan's graph with a phantom output column and with a stage growing with
+   the bucket out of proportion, each of which must raise
+   ``PlanVerificationError`` naming its rule (``schema-chain``,
+   ``bucket-safety``);
+10. zeroes the counts again and serves the LM workload with the decode tick
    captured (one graph, after one eager warm-up tick), printing prefill
    time per admission, the decode tick (median, p90), time to first token
    and generated tokens per second beside the eager run's; reads the
@@ -132,10 +160,11 @@ In order it
    versions and holds the eager run's tokens equal to them, step by step,
    up to the first near-tie between a step's top two logits; profiles a
    captured and an eager tick (the card's busy time and idle share);
-9. prints the run's total time, the kernel table as one JSON line
+11. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
-   hospital query and dashboard plan, the transforms, capture and served
-   phases, the LM serving run) and, last, the device line
+   hospital query and dashboard plan, the transforms, capture, served,
+   strategy and verify phases, the LM serving run) and, last, the device
+   line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -1619,6 +1648,265 @@ def served_phase(case, session, thresholds, smi: str) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Runtime selection: a corpus measured on the card, three strategies
+# ---------------------------------------------------------------------------
+
+# 20,000 rows is the reference's measuring batch (``build_corpus``'s default)
+CORPUS_PIPELINES, CORPUS_ROWS, CORPUS_SEED = 12, 20_000, 0
+
+
+def capture_cache(label: str) -> dict:
+    """The capture cache's snapshot: graphs held, their bytes, evictions."""
+    from repro_torch.exec import capture
+
+    graphs, graph_bytes = capture.held()
+    snap = {"graphs": graphs, "graph_bytes": graph_bytes,
+            "evictions": capture.evictions(), "capacity": capture.GRAPH_CAPACITY}
+    print(f"capture cache {label}:", json.dumps(snap), flush=True)
+    return snap
+
+
+def strategy_phase(case, thresholds, dev, smi: str) -> dict[str, int]:
+    """Runtime selection on the card: ``build_corpus`` trains
+    ``CORPUS_PIPELINES`` pipelines from ``CORPUS_SEED`` (the reference's
+    pipelines for that seed) and times each under ``none`` (the numpy
+    interpreter), ``sql`` and ``dnn`` (captured stages on the card) on
+    ``CORPUS_ROWS`` rows, labelling each with its fastest runtime; the
+    three strategies are fitted on it, and the rule-based one is printed
+    as a rule. The strategies choose a runtime for the hospital pipeline,
+    and the hospital query prepared through ``connect(strategy=...)``
+    runs the rule-based strategy's choice: its answers against the host
+    oracle (under ``sql``, against the same query run by the port on the
+    CPU, as the transforms phase holds it). Prints the capture cache before
+    the phase, after the corpus (which must hold no graph of its own and
+    have evicted none: it releases its graphs once measured) and after the
+    phase. Driven with the launch counts zeroed just before it; returns its
+    counts."""
+    import repro_torch as raven
+    from repro_torch.core.corpus import build_corpus
+    from repro_torch.core.stats import STAT_NAMES, pipeline_stats
+    from repro_torch.core.strategies import (
+        TRANSFORMS as RUNTIMES,
+        ClassificationStrategy,
+        RegressionStrategy,
+        RuleBasedStrategy,
+        evaluate_strategy,
+    )
+
+    before = capture_cache("before the strategy phase")
+    zero_counts()
+    specs = []
+    t0 = time.perf_counter()
+    corpus = build_corpus(n_pipelines=CORPUS_PIPELINES, n_rows=CORPUS_ROWS,
+                          seed=CORPUS_SEED, device=dev,
+                          progress=lambda i, n, spec: specs.append(spec))
+    build_s = time.perf_counter() - t0
+    built = capture_cache("after the corpus")
+    check(built["graphs"] <= before["graphs"] and built["evictions"] == before["evictions"],
+          ("the corpus left graphs in the capture cache or evicted some", before, built))
+    check(corpus.stats.shape == (CORPUS_PIPELINES, len(STAT_NAMES))
+          and corpus.runtimes.shape == (CORPUS_PIPELINES, len(RUNTIMES)), "corpus shapes")
+    check(np.isfinite(corpus.runtimes[:, [0, 2]]).all(), "a none or dnn time is not finite")
+    check(np.array_equal(corpus.labels, np.argmin(corpus.runtimes, axis=1)), "labels")
+    for i, (spec, ms) in enumerate(zip(specs, 1e3 * corpus.runtimes)):
+        row = {"pipeline": i, "model": str(spec["model"]), "numeric": spec["n_num"],
+               "categorical": spec["n_cat"], "depth": spec["depth"],
+               "trees": spec["n_trees"],
+               "tree_nodes": float(corpus.stats[i, STAT_NAMES.index("n_tree_nodes")]),
+               "ms": dict(zip(RUNTIMES, ms.tolist())),
+               "label": RUNTIMES[int(corpus.labels[i])]}
+        print(f"strategy [{smi}] corpus:", json.dumps(row), flush=True)
+    shares = {r: float(np.mean(corpus.labels == k)) for k, r in enumerate(RUNTIMES)}
+    print(f"strategy [{smi}]: {CORPUS_PIPELINES} pipelines of seed {CORPUS_SEED} on "
+          f"{CORPUS_ROWS} rows built and measured in {build_s:.1f} s; label shares "
+          f"{json.dumps(shares)}", flush=True)
+    if len(set(corpus.labels.tolist())) == 1:
+        print(f"strategy [{smi}]: every pipeline is labelled "
+              f"{RUNTIMES[int(corpus.labels[0])]} on this card", flush=True)
+    strategies = {
+        "rule": RuleBasedStrategy().fit(corpus.stats, corpus.labels),
+        "classification": ClassificationStrategy().fit(corpus.stats, corpus.labels),
+        "regression": RegressionStrategy().fit(corpus.stats, corpus.runtimes),
+    }
+    print(f"strategy [{smi}] rule-based strategy:\n{strategies['rule'].describe()}",
+          flush=True)
+    present = [RUNTIMES[int(c)] for c in strategies["rule"].tree.classes_]
+    if len(present) < len(RUNTIMES):
+        print(f"strategy [{smi}]: describe() names each leaf by its position among the "
+              f"labels present, {present}, read as a runtime, so its leaf names are not "
+              f"the runtimes choose() returns (the reference's describe(); ROADMAP Queue 3)",
+              flush=True)
+    stats = pipeline_stats(case["pipe"])
+    chosen = {}
+    for name, strat in strategies.items():
+        fit = evaluate_strategy(strat, corpus.stats, corpus.labels, corpus.runtimes)
+        chosen[name] = strat.choose(stats)
+        print(f"strategy [{smi}] {name}: on its training corpus {json.dumps(fit)}; "
+              f"hospital pipeline -> {chosen[name]}", flush=True)
+        check(chosen[name] in RUNTIMES, chosen)
+
+    runtime = chosen["rule"]
+    db = raven.connect(case["tables"], stats="auto", device=dev, strategy=strategies["rule"])
+    db.register_model("m", case["pipe"])
+    t0 = time.perf_counter()
+    prep = db.sql(QUERY).prepare(params={"t": thresholds[1]})
+    prep_s = time.perf_counter() - t0
+    check(prep.report.transforms == {0: runtime}, (prep.report.transforms, runtime))
+    if runtime == "sql":
+        cpu = raven.connect(case["tables"], stats="auto", device="cpu")
+        cpu.register_model("m", case["pipe"])
+        on_cpu = cpu.sql(QUERY).prepare(transform="sql", params={"t": thresholds[1]})
+        wants = [run_hospital(on_cpu, t)[:2] for t in thresholds]
+    else:
+        wants = [hospital_oracle(case, t) for t in thresholds]
+    for t, (want_count, want_avg) in zip(thresholds, wants):
+        count, avg, ms = run_hospital(prep, t)
+        print(f"strategy [{smi}] hospital query under the chosen {runtime}: t={t!r} "
+              f"COUNT={count} AVG={avg!r}; want COUNT={want_count} AVG={want_avg!r}; "
+              f"{ms!r} ms", flush=True)
+        check(count == want_count > 0, (runtime, t, count, want_count))
+        check(abs(avg - want_avg) <= 1e-5 * abs(want_avg), (runtime, t, avg, want_avg))
+    print(f"strategy [{smi}]: connect(strategy=rule) -> prepare in {prep_s:.2f} s, "
+          f"report.transforms {prep.report.transforms}", flush=True)
+    db.close()
+    after = capture_cache("after the strategy phase")
+    print(f"strategy [{smi}]: the phase added {after['graphs'] - before['graphs']} graphs "
+          f"({after['graph_bytes'] - before['graph_bytes']} bytes) and evicted "
+          f"{after['evictions'] - before['evictions']}", flush=True)
+    counts = read_counts()
+    print("launches of the strategy phase:", counts, flush=True)
+    check(all(counts[n] > 0 for n in ("featurize", "tree_gemm", "segment_agg")),
+          f"a kernel of the strategy phase was not launched: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Plan verification on the card
+# ---------------------------------------------------------------------------
+
+
+def verify_phase(case, session, thresholds, s_thresholds, tables, dev,
+                 smi: str) -> dict[str, int]:
+    """Every plan of the main path prepared under ``verify="strict"`` on
+    the card: the hospital query under ``dnn``, ``sql`` and ``none``, the
+    split plan and the dashboard plan (``verify_plan`` on the uploaded
+    star schema). Each strict prepare runs the optimizer's checks after
+    every rewrite, the graph checks and the abstract run of each stage on
+    zero-filled inputs of 8 and 16 rows on the card (the exec memo cleared
+    first); its time is printed beside the same prepare with ``verify="off"``
+    and a second strict prepare (the memo's hit). The strictly prepared
+    ``dnn`` plan answers as the host oracle does. Then two corruptions must
+    raise ``PlanVerificationError`` on the card: a phantom output column
+    (``schema-chain``) and a stage whose output grows with the bucket but
+    not in proportion (``bucket-safety``, found by the abstract run), both
+    made on the graph of a ``dnn`` plan straight from the optimizer, which
+    first verifies clean on the session's card database (the abstract run
+    moves its CPU-built programs to the card). Driven with the launch
+    counts zeroed just before it; returns its counts."""
+    from repro_torch.analysis import verifier
+    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+    from repro_torch.errors import PlanVerificationError
+    from repro_torch.exec.stages import build_stage_graph
+    from repro_torch.relational.engine import TensorOp, upload_database, walk_plan
+
+    zero_counts()
+    plans = [(f"hospital {tr}", QUERY, tr, thresholds) for tr in ("dnn", "sql", "none")]
+    plans.append(("split", SPLIT_QUERY, "dnn", s_thresholds))
+    strict_dnn = None
+    for label, sql, transform, ts in plans:
+        query = session.sql(sql)
+        times = {}
+        for mode in ("off", "strict", "strict, memo hit"):
+            if mode == "strict":
+                verifier._EXEC_MEMO.clear()
+            t0 = time.perf_counter()
+            prep = query.prepare(transform=transform, params={"t": ts[1]},
+                                 verify=mode.split(",")[0])
+            times[mode] = 1e3 * (time.perf_counter() - t0)
+        lines = prep.report.verification
+        check(lines and all(ln.endswith(": ok") for ln in lines)
+              and lines[-1] == "prepare (stage graph): ok", (label, lines))
+        print(f"verify [{smi}] {label}: prepare ms {json.dumps(times)}; the checks add "
+              f"{times['strict'] - times['off']!r} ms ({times['strict, memo hit'] - times['off']!r}"
+              f" with the exec memo hit); lines {json.dumps(lines)}", flush=True)
+        if label == "hospital dnn":
+            strict_dnn = prep
+    for t in thresholds:
+        count, avg, _ = run_hospital(strict_dnn, t)
+        want_count, want_avg = hospital_oracle(case, t)
+        check(count == want_count > 0, ("verify dnn", t, count, want_count))
+        check(abs(avg - want_avg) <= 1e-5 * abs(want_avg), ("verify dnn", t, avg, want_avg))
+
+    db = upload_database(tables, dev)
+    plan = dashboard_plan()
+    verifier._EXEC_MEMO.clear()
+    t0 = time.perf_counter()
+    lines = verifier.verify_plan(plan, db, mode="strict", context="dashboard")
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(lines == ["dashboard: ok"], lines)
+    print(f"verify [{smi}] dashboard: verify_plan (graph checks and the abstract run "
+          f"on the card) {ms!r} ms; lines {json.dumps(lines)}", flush=True)
+
+    # a plan straight from the optimizer: its tensor programs are built on
+    # the CPU, and the abstract run against the card database moves them
+    plan, _ = RavenOptimizer(options=OptimizerOptions(transform="dnn")).optimize(
+        session.sql(QUERY).ir)
+    programs = [p.fn for p in walk_plan(plan) if isinstance(p, TensorOp)]
+    check(programs and all(next(m.buffers()).device.type == "cpu" for m in programs),
+          "the optimizer's programs are not on the CPU")
+    before = read_counts()
+    verifier._EXEC_MEMO.clear()
+    lines = verifier.verify_plan(plan, session.database, mode="strict", context="fresh plan")
+    launched = {n: c - before[n] for n, c in read_counts().items()}
+    check(lines == ["fresh plan: ok"], lines)
+    check(all(next(m.buffers()).device == session.database.device for m in programs),
+          "verify_plan left the programs off the card")
+    check(all(launched[n] > 0 for n in ("featurize", "tree_gemm", "segment_agg")), launched)
+    print(f"verify [{smi}] optimizer plan: verify_plan on the session's database moved its "
+          f"programs to {session.database.device} and launched {json.dumps(launched)}; "
+          f"lines {json.dumps(lines)}", flush=True)
+    for rule, corrupt in (("schema-chain", phantom_column), ("bucket-safety", grown_rows)):
+        graph = build_stage_graph(plan)
+        corrupt(graph)
+        verifier._EXEC_MEMO.clear()
+        try:
+            verifier.verify_graph(graph, session.database, mode="strict",
+                                  context=f"corrupted ({rule})")
+        except PlanVerificationError as e:
+            rules = sorted({v.rule for v in e.violations})
+            print(f"verify [{smi}] corrupted graph: PlanVerificationError {rules}: "
+                  f"{e.violations[0]}", flush=True)
+            check(rule in rules, (rule, rules))
+        else:
+            check(False, f"strict verification passed a corrupted graph ({rule})")
+    counts = read_counts()
+    print("launches of the verify phase:", counts, flush=True)
+    check(all(counts[n] > 0 for n in KERNELS if n not in ATTENTION),
+          f"a kernel of the abstract runs was not launched: {counts}")
+    return counts
+
+
+def phantom_column(graph) -> None:
+    graph.stages[-1].out_columns += ("phantom",)
+
+
+def grown_rows(graph) -> None:
+    """The last stage's first column grown by a row for every 8 input rows:
+    a stage neither row-polymorphic nor bucket-independent."""
+    from repro_torch.exec.stages import ROW_VALID_KEY
+
+    st = graph.stages[-1]
+
+    def fn(env, _orig=st.fn):
+        cols, valid, seg = _orig(env)
+        key = next(iter(cols))
+        extra = cols[key].new_zeros((env[ROW_VALID_KEY].shape[0] // 8,))
+        return {**cols, key: torch.cat([cols[key], extra])}, valid, seg
+
+    st.fn = fn
+
+
 def report_lm(traced: TracedModel, outputs: dict, wall: float, mode: str) -> dict:
     tokens = sum(len(o) for o in outputs.values())
     ttft = sorted(traced.first_token_s.values())
@@ -1749,7 +2037,11 @@ def main() -> int:
     mark("capture phase")
     served = served_phase(case, session, thresholds, smi)
     mark("served phase")
-    for phase in (transforms, captured, served):
+    selected = strategy_phase(case, thresholds, dev, smi)
+    mark("strategy phase")
+    verified = verify_phase(case, session, thresholds, s_thresholds, tables, dev, smi)
+    mark("verify phase")
+    for phase in (transforms, captured, served, selected, verified):
         for name in KERNELS:
             counts[name] += phase[name]
 

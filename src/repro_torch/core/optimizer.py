@@ -5,14 +5,15 @@ Order (paper §5.2 closing summary):
   1. predicate-based model pruning   (enables more projection pushdown)
   2. data-induced optimizations      (same machinery, stats-sourced)
   3. model-projection pushdown       (consumes sparsity created by 1 & 2)
-  4. the transform per predict node  (forced through the options; with
-     none forced, ``"none"``, as in the reference without a strategy)
+  4. the transform per predict node  (forced through the options, else
+     the strategy's choice from the pipeline's statistics, else ``"none"``)
   5. lowering: LPredict → Project(exprs) | TensorOp | MLUdf
 
 MLtoSQL / MLtoDNN failures fall back to the ML runtime ('none'), matching
 the paper's whole-pipeline-or-fail semantics; MLtoDNN first tries to split
-the pipeline around the ops it cannot lower. Learned runtime selection (a
-``strategy``) raises ``NotImplementedError`` naming its ROADMAP item.
+the pipeline around the ops it cannot lower. With a verify mode other than
+``off`` the plan is checked after every rewrite and after lowering
+(:mod:`repro_torch.analysis.verifier`).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.core.rules.ml_to_sql import (
 )
 from repro_torch.core.rules.predicate_pruning import apply_predicate_pruning
 from repro_torch.core.rules.projection_pushdown import apply_projection_pushdown
+from repro_torch.core.stats import pipeline_stats
 from repro_torch.relational.engine import (
     Aggregate,
     Filter,
@@ -70,12 +72,6 @@ from repro_torch.relational.expr import (
     format_expr,
 )
 
-STRATEGY_NOT_PORTED = (
-    "learned runtime selection (ROADMAP.md Queue 1 item 9, runtime "
-    "selection: core/strategies.py)"
-)
-
-
 @dataclass
 class OptimizerOptions:
     predicate_pruning: bool = True
@@ -92,6 +88,9 @@ class OptimizerOptions:
     # fresh deterministic CostModel.default() per lowering, so plan-cache
     # fingerprints stay stable across processes
     cost_model: Optional[CostModel] = None
+    # static plan verification: 'off' | 'warn' | 'strict' (True/False map
+    # to strict/off); None defers to the RAVEN_VERIFY environment variable
+    verify: Optional[str] = None
 
 
 @dataclass
@@ -107,6 +106,10 @@ class OptimizationReport:
     # ("tensor/prefix", "host/residual", "tensor/suffix") when the
     # pipeline-splitting MLtoDNN lowering cut the pipeline
     placement: list[list[tuple[str, str]]] = field(default_factory=list)
+    # differential-verification trail (one line per checked rewrite phase),
+    # filled when the verify mode is 'warn' or 'strict'; rendered by
+    # explain()
+    verification: list[str] = field(default_factory=list)
     # relational-op runtime placement (Join / Aggregate), filled after
     # lowering: (op label, runtime description). Reflects the process-wide
     # RAVEN_KERNELS mode captured when the stage graph is built.
@@ -137,10 +140,7 @@ class DNNOutputs(nn.Module):
 
 class RavenOptimizer:
     def __init__(self, strategy=None, options: Optional[OptimizerOptions] = None):
-        if strategy is not None:
-            raise NotImplementedError(
-                f"a runtime-selection strategy is not ported yet: {STRATEGY_NOT_PORTED}"
-            )
+        self.strategy = strategy
         self.options = options or OptimizerOptions()
 
     # -- public API ---------------------------------------------------------
@@ -150,12 +150,33 @@ class RavenOptimizer:
         q = query.copy()
         report = OptimizationReport()
 
+        # differential verification: re-check the plan after every rewrite
+        # rule, so a violation names the rule that introduced it
+        from repro_torch.analysis.verifier import (
+            check_logical,
+            enforce,
+            resolve_verify_mode,
+        )
+
+        verify_mode = resolve_verify_mode(opt.verify)
+
+        def checkpoint(phase: str) -> None:
+            if verify_mode == "off":
+                return
+            report.verification += enforce(
+                check_logical(q, where=phase), verify_mode, phase
+            )
+
+        checkpoint("input")
         if opt.predicate_pruning:
             apply_predicate_pruning(q)
+            checkpoint("after predicate_pruning")
         if opt.data_induced:
             apply_data_induced(q)
+            checkpoint("after data_induced")
         if opt.projection_pushdown:
             apply_projection_pushdown(q)
+            checkpoint("after projection_pushdown")
         else:
             from repro_torch.core.rules.projection_pushdown import (
                 prune_relational_columns,
@@ -164,14 +185,19 @@ class RavenOptimizer:
             # vanilla-engine behaviour: scans don't read columns no operator
             # references, but FK joins survive (join elimination is Raven's)
             prune_relational_columns(q, eliminate_joins=False)
+            checkpoint("after column_pruning")
 
         # MLtoSQL runs here, before any threshold moves to logit space: a
         # pipeline it cannot translate falls back to the host MLUdf, which
         # emits probability-space scores, so its filters must stay as written
         sql: dict[int, tuple[dict[str, Expr], str]] = {}
         for i, pred in enumerate(q.predict_nodes()):
-            # no transform and no strategy: the reference's default, "none"
-            t = opt.transform if opt.transform is not None else "none"
+            if opt.transform is not None:
+                t = opt.transform
+            elif self.strategy is not None:
+                t = self.strategy.choose(pipeline_stats(pred.pipeline))
+            else:
+                t = "none"
             pred.transform = t
             report.transforms[i] = t
             if t != "sql":
@@ -193,11 +219,19 @@ class RavenOptimizer:
                     # score only feeds threshold filters: keep the faster
                     # logit-space emission and move the thresholds instead.
                     rewrite_score_filters(q.plan, score, "logit")
+        checkpoint("after transform_selection")
 
         plan = self._lower(q.plan, report, sql)
-        from repro_torch.exec.stages import describe_segments
+        from repro_torch.exec.stages import build_stage_graph, describe_segments
         from repro_torch.kernels.ops import kernels_enabled
 
+        if verify_mode != "off":
+            from repro_torch.analysis.verifier import check_graph
+
+            report.verification += enforce(
+                check_graph(build_stage_graph(plan)), verify_mode,
+                "after lowering",
+            )
         report.stages = describe_segments(plan)
         kern = kernels_enabled()
         for node in walk_plan(plan):

@@ -50,6 +50,7 @@ _disabled = 0
 CAPTURE_LOCK = threading.Lock()
 _graphs: "OrderedDict[tuple, StageCapture]" = OrderedDict()
 _serials = itertools.count()
+_evicted = 0  # graphs dropped to keep the cache at GRAPH_CAPACITY
 
 
 @contextmanager
@@ -248,11 +249,13 @@ def new_owner(owner) -> int:
     """A serial for ``owner`` (a stage runner) under which its graphs are
     cached; they are dropped when the owner is collected."""
     serial = next(_serials)
-    weakref.finalize(owner, _drop_owner, serial)
+    weakref.finalize(owner, release, serial)
     return serial
 
 
-def _drop_owner(serial: int) -> None:
+def release(serial: int) -> None:
+    """Drop the graphs cached under owner ``serial`` (not counted as
+    evictions)."""
     with _lock:
         for k in [k for k in _graphs if k[0] == serial]:
             del _graphs[k]
@@ -267,10 +270,18 @@ def lookup(key: tuple) -> Optional[StageCapture]:
 
 
 def insert(key: tuple, graph: StageCapture) -> None:
+    global _evicted
     with _lock:
         _graphs[key] = graph
         while len(_graphs) > GRAPH_CAPACITY:
             _graphs.popitem(last=False)
+            _evicted += 1
+
+
+def evictions() -> int:
+    """Graphs the cache has dropped, least recently used first, to stay at
+    ``GRAPH_CAPACITY`` (a graph dropped with its stage is not counted)."""
+    return _evicted
 
 
 def held() -> tuple[int, int]:

@@ -315,7 +315,8 @@ class Stage:
     interpreted on the host. ``fingerprint`` is a canonical content hash of
     this stage's operators chained through every upstream stage's hash.
     ``reads`` and ``params`` are the env tables (and their columns) and the
-    ``:param`` slots the stage reads. ``traces`` counts the stage's
+    ``:param`` slots the stage reads, ``in_columns`` the upstream stage's
+    columns it consumes. ``traces`` counts the stage's
     specializations: captures on the card, first calls of an input
     structure on the CPU. A host stage sums its time by part in ``host_s``:
     ``sync`` (waiting for the card), ``down`` (the copy to the host and the
@@ -329,6 +330,9 @@ class Stage:
     fingerprint: str
     out_columns: tuple[str, ...]
     reads: dict[str, tuple[str, ...]] = field(default_factory=dict)
+    # upstream-stage columns consumed: a pure stage's whole upstream schema
+    # (None for the entry stage), a host stage's pipeline inputs
+    in_columns: Optional[tuple[str, ...]] = None
     params: frozenset[str] = frozenset()
     fn: Optional[Callable[[dict], State]] = None  # pure: raw env -> state
     runner: Optional[Callable[..., State]] = None  # pure: fn behind capture
@@ -364,6 +368,21 @@ class StageGraph:
     @property
     def n_host_boundaries(self) -> int:
         return sum(1 for s in self.stages if s.kind == "host")
+
+    @property
+    def has_aggregate(self) -> bool:
+        from repro_torch.relational.engine import Aggregate
+
+        return any(
+            isinstance(op, Aggregate) for s in self.stages for op in s.ops
+        )
+
+    @property
+    def needs_segments(self) -> bool:
+        """True when per-request splitting of a coalesced batch requires
+        segment ids: row alignment with the input spine is lost at host
+        boundaries (compaction) and at aggregates (folding)."""
+        return not self.is_pure or self.has_aggregate
 
     @property
     def traces(self) -> int:
@@ -524,10 +543,13 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
                 fn = pure_step(op, fn)
             stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
                           out_columns=tuple(out_cols), reads=_segment_reads(ops),
+                          in_columns=tuple(prev_out) if prev_out is not None else None,
                           params=_segment_params(ops), fn=fn)
         else:
             stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
-                          out_columns=tuple(out_cols), udf=ops[0])
+                          out_columns=tuple(out_cols),
+                          in_columns=tuple(ops[0].pipeline.input_names()),
+                          udf=ops[0])
         stages.append(stage)
         prev_fp = fp
         prev_out = out_cols

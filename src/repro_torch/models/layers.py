@@ -25,7 +25,7 @@ from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
 
 _WINDOW_TODO = (
     "sliding-window attention comes with the hybrid family (ROADMAP Queue 1 "
-    "item 8): the attention kernels take no window"
+    "item 10): the attention kernels take no window"
 )
 
 

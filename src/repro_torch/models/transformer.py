@@ -40,7 +40,7 @@ def mlp_param_shapes(cfg: ArchConfig) -> dict:
 
 def decoder_layer_shapes(cfg: ArchConfig) -> dict:
     """A dense decoder layer (MoE layers and the enc-dec cross-attention
-    come with their families, ROADMAP Queue 1 item 8)."""
+    come with their families, ROADMAP Queue 1 item 10)."""
     return {
         "ln1": (cfg.d_model,),
         "ln2": (cfg.d_model,),

@@ -9,7 +9,7 @@ Every model exposes the reference's surface for serving:
 
 ``build_model`` builds the ``dense`` family. The ``moe``, ``vlm``,
 ``encdec``, ``ssm`` and ``hybrid`` families, and training (``loss``), are
-ROADMAP Queue 1 item 8 and raise until they are ported.
+ROADMAP Queue 1 item 10 and raise until they are ported.
 """
 from __future__ import annotations
 
@@ -180,6 +180,6 @@ def build_model(cfg: ArchConfig) -> Model:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: {_NOT_PORTED[cfg.family]} is not ported yet "
-            "(ROADMAP Queue 1 item 8)"
+            "(ROADMAP Queue 1 item 10)"
         )
     raise ValueError(cfg.family)

@@ -15,6 +15,7 @@ the fingerprint-keyed compiled-plan cache on top of the stage graph.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Union
@@ -160,7 +161,8 @@ class CacheStats:
     fingerprint. ``replays`` counts graph replays and
     ``capture_input_copies`` the per-call inputs they copied into their
     graphs' buffers; ``graphs``/``graph_bytes`` in the snapshot are the
-    graphs held and the card memory they hold."""
+    graphs held and the card memory they hold, ``graph_evictions`` the
+    graphs the capture cache dropped to stay within its capacity."""
 
     hits: int = 0
     misses: int = 0
@@ -180,6 +182,7 @@ class CacheStats:
             "stage_traces": dict(self.stage_traces), "replays": self.replays,
             "capture_input_copies": self.capture_input_copies,
             "graphs": graphs, "graph_bytes": graph_bytes,
+            "graph_evictions": capture.evictions(),
         }
 
 
@@ -315,6 +318,54 @@ def upload_database(database: dict, device=None) -> Database:
     return Database(tables, dev, host)
 
 
+def place_programs(plan: PhysicalPlan, device: torch.device) -> None:
+    """Move every TensorOp program of ``plan`` whose tensors lie elsewhere
+    to ``device`` (the optimizer builds them on the CPU)."""
+    for p in walk_plan(plan):
+        if isinstance(p, TensorOp) and isinstance(p.fn, torch.nn.Module):
+            t = next(itertools.chain(p.fn.buffers(), p.fn.parameters()), None)
+            if t is not None and t.device != device:
+                p.fn.to(device)
+
+
+def build_env(
+    plan: PhysicalPlan,
+    database: dict,
+    device: torch.device,
+    row_valid,
+    params: Optional[dict[str, Any]],
+    segments: Optional[tuple[np.ndarray, int]],
+) -> dict[str, Any]:
+    """The execution environment of ``plan`` on ``device``: the tables
+    (uploaded unless already there), the row mask, the ``:param`` slots,
+    the request segments and every Join's baked dim sort."""
+    db = upload_database(database, device)
+    env: dict[str, Any] = dict(db)
+    if row_valid is not None:
+        env[ROW_VALID_KEY] = to_device(row_valid, device).to(torch.bool)
+    if params:
+        # float32 0-d tensors: a bound value is a runtime input
+        env[PARAMS_KEY] = {
+            k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            for k, v in params.items()
+        }
+    if segments is not None:
+        seg_ids, count = segments
+        # slot count is power-of-two bucketed; the real request count
+        # rides in as a runtime scalar
+        ns = seg_bucket(count)
+        env[ROW_SEG_KEY] = to_device(seg_ids, device).to(torch.int32)
+        env[SEG_SLOTS_KEY] = torch.arange(ns, dtype=torch.int32, device=device)
+        env[SEG_COUNT_KEY] = torch.tensor(count, dtype=torch.int32, device=device)
+    ds: dict[str, dict[str, Any]] = {}
+    for p in walk_plan(plan):
+        if isinstance(p, Join) and p.dim_key in db.get(p.dim_table, ()):
+            ds[p.dim_table] = db.dimsort(p.dim_table, p.dim_key)
+    if ds:
+        env[DIMSORT_KEY] = ds
+    return env
+
+
 @dataclass
 class CompiledPlan:
     """Reusable compiled artifact for one physical plan: the lowered
@@ -325,7 +376,6 @@ class CompiledPlan:
     fingerprint: str
     graph: StageGraph
     pins: list = field(default_factory=list)
-    device: Optional[torch.device] = None  # where the TensorOp programs sit
 
     @property
     def stages(self) -> list:
@@ -341,54 +391,17 @@ class CompiledPlan:
         """Stage specializations of this plan (captures on the card)."""
         return self.graph.traces
 
-    def _place(self, device: torch.device) -> None:
-        """Move every TensorOp program to ``device`` (once per device)."""
-        if self.device == device:
-            return
-        for p in walk_plan(self.graph.plan):
-            if isinstance(p, TensorOp) and isinstance(p.fn, torch.nn.Module):
-                p.fn.to(device)
-        self.device = device
-
-    def _env(
-        self,
-        database: dict,
-        device: torch.device,
-        row_valid,
-        params: Optional[dict[str, Any]],
-        segments: Optional[tuple[np.ndarray, int]],
-    ) -> dict[str, Any]:
-        """Build the execution environment on ``device``."""
-        db = upload_database(database, device)
-        env: dict[str, Any] = dict(db)
-        if row_valid is not None:
-            env[ROW_VALID_KEY] = to_device(row_valid, device).to(torch.bool)
-        if params:
-            # float32 0-d tensors: a bound value is a runtime input
-            env[PARAMS_KEY] = {
-                k: torch.as_tensor(v, dtype=torch.float32, device=device)
-                for k, v in params.items()
-            }
-        if segments is not None:
-            seg_ids, count = segments
-            # slot count is power-of-two bucketed; the real request count
-            # rides in as a runtime scalar
-            ns = seg_bucket(count)
-            env[ROW_SEG_KEY] = to_device(seg_ids, device).to(torch.int32)
-            env[SEG_SLOTS_KEY] = torch.arange(ns, dtype=torch.int32, device=device)
-            env[SEG_COUNT_KEY] = torch.tensor(count, dtype=torch.int32, device=device)
-        ds: dict[str, dict[str, Any]] = {}
-        for p in walk_plan(self.graph.plan):
-            if isinstance(p, Join) and p.dim_key in db.get(p.dim_table, ()):
-                ds[p.dim_table] = db.dimsort(p.dim_table, p.dim_key)
-        if ds:
-            env[DIMSORT_KEY] = ds
-        return env
+    def release(self) -> None:
+        """Drop the graphs this plan's stages captured now, not when the
+        stages are collected."""
+        for stage in self.graph.stages:
+            if stage.runner is not None:
+                capture.release(stage.runner.serial)
 
     def _prepare(self, database, device, row_valid, params, segments, donate):
         dev = resolve_device(device)
-        self._place(dev)
-        env = self._env(database, dev, row_valid, params, segments)
+        place_programs(self.graph.plan, dev)
+        env = build_env(self.graph.plan, database, dev, row_valid, params, segments)
         # a table uploaded for this call only is single-use, as a donated one
         fresh = database.replaced if isinstance(database, Database) else frozenset()
         return env, frozenset(donate) | fresh

@@ -55,7 +55,7 @@ class ServeEngine:
         if model.cfg.family != "dense":
             raise NotImplementedError(
                 "ServeEngine drives the dense decoder LM; the other families "
-                "are ROADMAP Queue 1 item 8"
+                "are ROADMAP Queue 1 item 10"
             )
         self.device = resolve_device(device)
         leaf = params["embed"]

@@ -35,8 +35,10 @@ drains — so tests and examples can drive it deterministically.
 Each served name holds one version of its query. The reference's model
 lifecycle on top of that (``stage_version``, ``warm_version``,
 ``set_shadow``, ``set_split``, ``cutover``, ``retire_version``, the circuit
-breaker) raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 7,
-and ``register`` does not verify plans (item 8).
+breaker) raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 7.
+Under a verify mode other than ``off`` (the optimizer options' ``verify``,
+else ``RAVEN_VERIFY``), ``register`` re-verifies the stage graph it will
+serve, abstract execution included, against the registered tables.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.runtime import asserts_enabled, runtime_assert
+from repro_torch.analysis.verifier import resolve_verify_mode, verify_graph
 from repro_torch.core.fingerprint import fingerprint
 from repro_torch.core.ir import PredictionQuery
 from repro_torch.core.optimizer import OptimizationReport, OptimizerOptions, RavenOptimizer
@@ -67,7 +70,6 @@ from repro_torch.exec.faults import RetryPolicy, get_fault_plan, maybe_inject
 from repro_torch.exec.pipeline import PipelineExecutor
 from repro_torch.exec.scheduler import Scheduler
 from repro_torch.relational.engine import (
-    Aggregate,
     CompiledPlan,
     Database,
     PhysicalPlan,
@@ -209,7 +211,7 @@ class RegisteredQuery:
         per-request results fall out of positional slicing — no segment ids
         needed. False once a host boundary (compaction) or an aggregate
         (folding) breaks the alignment."""
-        return self.compiled.is_pure and not self.has_aggregate
+        return not self.compiled.graph.needs_segments
 
 
 class PredictionQueryServer:
@@ -296,7 +298,8 @@ class PredictionQueryServer:
             qfp = fingerprint(query.plan, query.stats, "external", pins=self._pins)
         else:
             qfp = fingerprint(
-                query.plan, query.stats, self.optimizer.options, pins=self._pins,
+                query.plan, query.stats, self.optimizer.options,
+                self.optimizer.strategy, pins=self._pins,
             )
             cached = self._optimized.get(qfp)
             if cached is not None:
@@ -309,6 +312,18 @@ class PredictionQueryServer:
                 plan, report = self.optimizer.optimize(query)
                 self._optimized[qfp] = (plan, report)
         compiled = compile_plan(plan)
+        db = upload_database(database, self.device)
+        verify_mode = resolve_verify_mode(self.optimizer.options.verify)
+        if verify_mode != "off":
+            # a plan optimized elsewhere skips the optimizer's differential
+            # checks, so the server re-verifies the graph it will actually
+            # serve — including abstract execution against the registered
+            # tables (bucket polymorphism, dtype stability) on its device
+            lines = verify_graph(compiled.graph, db, mode=verify_mode,
+                                 context=f"register '{name}'")
+            report.verification += [
+                ln for ln in lines if ln not in report.verification
+            ]
         param_names = frozenset(plan_params(plan))
         bound = dict(params or {})
         check_params(param_names, bound, context=f"query '{name}'")
@@ -328,7 +343,7 @@ class PredictionQueryServer:
             plan=plan,
             report=report,
             compiled=compiled,
-            database=upload_database(database, self.device),
+            database=db,
             fact_table=fact_table,
             scan_columns=scan_columns,
             # the full registered fact schema: submit normalizes every
@@ -337,7 +352,7 @@ class PredictionQueryServer:
                 c: canonical_dtype(_dtype_of(v))
                 for c, v in database[fact_table].items()
             },
-            has_aggregate=any(isinstance(p, Aggregate) for p in walk_plan(plan)),
+            has_aggregate=compiled.graph.has_aggregate,
             param_names=param_names,
             params={k: float(v) for k, v in bound.items()},
             donate=donate,

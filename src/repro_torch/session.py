@@ -17,6 +17,7 @@ IR, the optimizer and the engine, on the port's device::
          .select("COUNT(*)", "AVG(score)"))
 
     prep = q.prepare(transform="dnn", params={"t": 0.6})  # or "sql"; default "none"
+    prep = q.prepare(strategy=fitted, verify="strict")  # learned runtime, checked
     print(prep.explain())        # logical -> physical -> stage graph
     out = prep()                 # one-shot execution, numpy columns out
     prep.bind(t=0.9)             # re-bind: same plan, no new compile
@@ -30,11 +31,13 @@ so a prepared plan re-binds thresholds without re-optimizing, re-compiling,
 or changing its fingerprint. The session uploads its tables to its device
 once, at :func:`connect`; a call uploads only the ``batch`` it is given.
 
-What needs a cache directory, the verifier or the model lifecycle raises
-``NotImplementedError`` naming the ROADMAP item that ports it:
-``cache_dir``/``cache_max_bytes``/``recover``/``faults`` and a circuit
-breaker item 7, ``verify`` item 8, and a runtime-selection ``strategy``
-item 9.
+A runtime-selection ``strategy`` (:mod:`repro_torch.core.strategies`)
+picks each predict node's runtime from its pipeline's statistics where no
+``transform`` is forced; ``verify`` (or ``RAVEN_VERIFY``) checks every plan
+statically (:mod:`repro_torch.analysis.verifier`). What needs a cache
+directory or the model lifecycle raises ``NotImplementedError`` naming
+ROADMAP item 7: ``cache_dir``/``cache_max_bytes``/``recover``/``faults``
+and a circuit breaker.
 """
 from __future__ import annotations
 
@@ -46,7 +49,6 @@ import numpy as np
 
 from repro_torch.core.ir import PredictionQuery, TableStats, format_logical_plan
 from repro_torch.core.optimizer import (
-    STRATEGY_NOT_PORTED,
     OptimizationReport,
     OptimizerOptions,
     RavenOptimizer,
@@ -78,10 +80,6 @@ from repro_torch.sql.parser import (
 PERSISTENCE_NOT_PORTED = (
     "is not ported yet: ROADMAP.md Queue 1 item 7, persistence and lifecycle"
 )
-VERIFY_NOT_PORTED = (
-    "plan verification is not ported yet: ROADMAP.md Queue 1 item 8, "
-    "static analysis"
-)
 
 
 def connect(
@@ -103,11 +101,18 @@ def connect(
     dict to supply stats yourself, or ``None`` to skip statistics entirely.
     ``options`` is a :class:`ConnectOptions` bundle or a bare
     :class:`OptimizerOptions` (the session's optimizer defaults, which
-    :meth:`Query.prepare` can override per query). ``device`` is where the
-    tables live and queries run: the card unless the caller passes
-    ``device="cpu"``. ``strategy``, ``cache_dir``, ``cache_max_bytes`` and
-    ``verify``, and the bundle's ``faults`` and ``rollback``, raise
-    ``NotImplementedError`` naming their ROADMAP items.
+    :meth:`Query.prepare` can override per query). ``strategy`` is the
+    session's runtime-selection strategy (a fitted
+    :class:`~repro_torch.core.strategies.RuleBasedStrategy`,
+    ``ClassificationStrategy`` or ``RegressionStrategy``): with no
+    ``transform`` forced, it picks each predict node's runtime from the
+    pipeline's statistics. ``verify`` sets the session-wide
+    plan-verification mode: ``"off"``, ``"warn"`` or ``"strict"`` (``True``
+    is strict), or None for ``RAVEN_VERIFY`` (default off). ``device`` is
+    where the tables live and queries run: the card unless the caller
+    passes ``device="cpu"``. ``cache_dir`` and ``cache_max_bytes``, and the
+    bundle's ``faults`` and ``rollback``, raise ``NotImplementedError``
+    naming ROADMAP item 7.
     """
     return Session(
         tables, stats, partition_cols=partition_cols, strategy=strategy,
@@ -123,12 +128,6 @@ def _refuse_unported(copts: ConnectOptions) -> None:
         raise NotImplementedError(f"the artifact store (cache_dir) {PERSISTENCE_NOT_PORTED}")
     if copts.faults is not None or copts.rollback is not None:
         raise NotImplementedError(f"fault injection and rollback {PERSISTENCE_NOT_PORTED}")
-    if copts.verify is not None:
-        raise NotImplementedError(VERIFY_NOT_PORTED)
-    if copts.strategy is not None:
-        raise NotImplementedError(
-            f"a runtime-selection strategy is not ported yet: {STRATEGY_NOT_PORTED}"
-        )
 
 
 class Session:
@@ -149,14 +148,22 @@ class Session:
     ):
         if cache_dir is not None or cache_max_bytes is not None:
             raise NotImplementedError(f"the artifact store (cache_dir) {PERSISTENCE_NOT_PORTED}")
-        if verify is not None:
-            raise NotImplementedError(VERIFY_NOT_PORTED)
         copts = ConnectOptions.resolve(
-            options, partition_cols=partition_cols, strategy=strategy
+            options, partition_cols=partition_cols, strategy=strategy,
+            verify=verify,
         )
         _refuse_unported(copts)
         self.connect_options = copts
-        self.options = copts.optimizer
+        opt_options = copts.optimizer
+        if copts.verify is not None:
+            from repro_torch.analysis.verifier import resolve_verify_mode
+
+            opt_options = dataclasses.replace(
+                opt_options or OptimizerOptions(),
+                verify=resolve_verify_mode(copts.verify),
+            )
+        self.strategy = copts.strategy
+        self.options = opt_options
         self.device = resolve_device(device)
         self.tables = {
             t: {c: np.asarray(v) for c, v in cols.items()}
@@ -213,7 +220,7 @@ class Session:
         on the session's device)."""
         if self._server is None:
             self._server = PredictionQueryServer(
-                options=self.options, device=self.device
+                strategy=self.strategy, options=self.options, device=self.device
             )
         return self._server
 
@@ -309,21 +316,30 @@ class Query:
         ``TensorOp → MLUdf → TensorOp``), ``"sql"`` (the pipeline compiled
         into relational expressions, run with the query's operators) or
         ``"none"`` (the interpreted ML runtime on the host, behind one
-        MLUdf); ``None`` resolves to ``"none"``, as in the reference without
-        a strategy. ``options`` overrides the full optimizer
-        configuration. All ``:param`` placeholders must be bound via
-        ``params`` (re-bindable later with :meth:`PreparedQuery.bind`).
-        ``strategy`` and ``verify`` raise ``NotImplementedError`` naming
-        their ROADMAP items."""
-        if verify is not None:
-            raise NotImplementedError(VERIFY_NOT_PORTED)
+        MLUdf); ``None`` leaves the choice to ``strategy`` (this query's,
+        else the session's), which picks from the pipeline's statistics,
+        and without one resolves to ``"none"``. ``options`` overrides the
+        full optimizer configuration. All ``:param`` placeholders must be
+        bound via ``params`` (re-bindable later with
+        :meth:`PreparedQuery.bind`).
+
+        ``verify`` overrides the session's plan-verification mode for this
+        prepare only — ``True`` (= ``"strict"``) raises
+        :class:`~repro_torch.errors.PlanVerificationError` on any verifier
+        violation, ``"warn"`` warns, ``"off"`` disables. The mode does not
+        change the produced plan, its fingerprint, or any cache key."""
         opts = options or self._session.options or OptimizerOptions()
         if transform is not None:
             opts = dataclasses.replace(opts, transform=transform)
+        if verify is not None:
+            from repro_torch.analysis.verifier import resolve_verify_mode
+
+            opts = dataclasses.replace(opts, verify=resolve_verify_mode(verify))
+        strat = strategy if strategy is not None else self._session.strategy
         declared = self.param_names()
         bound = dict(params or {})
         check_params(declared, bound, context="query")
-        plan, report = RavenOptimizer(strategy=strategy, options=opts).optimize(self.ir)
+        plan, report = RavenOptimizer(strategy=strat, options=opts).optimize(self.ir)
         return PreparedQuery(self, plan, report, opts, bound)
 
 
@@ -396,11 +412,31 @@ class PreparedQuery:
         self.options = options
         self.params = dict(params)
         self.compiled = compile_plan(plan)
+        self._verify_compiled()
         self.param_names = query.param_names()
         self._serve_name: Optional[str] = None
         self._serve_token: Optional[str] = None
         self._serve_options: Optional[ServeOptions] = None
         self._server: Optional[PredictionQueryServer] = None
+
+    def _verify_compiled(self) -> None:
+        """Static verification of the lowered stage graph (mode permitting),
+        after ``compile_plan``: the graph checks, and the abstract run on
+        the session's device against its uploaded tables (the plan's tensor
+        programs are moved there, where its calls run them).
+        Verified lines land in ``report.verification`` (rendered by
+        :meth:`explain`); strict mode raises
+        :class:`~repro_torch.errors.PlanVerificationError`.
+        """
+        from repro_torch.analysis.verifier import resolve_verify_mode, verify_graph
+
+        mode = resolve_verify_mode(self.options.verify)
+        if mode == "off":
+            return
+        lines = verify_graph(self.compiled.graph, self.query.session.database,
+                             mode=mode, context="prepare (stage graph)")
+        ver = self.report.verification
+        ver += [ln for ln in lines if ln not in ver]
 
     @property
     def fingerprint(self) -> str:
@@ -603,6 +639,10 @@ class PreparedQuery:
             lines.append("-- optimizer notes " + "-" * 36)
             for n in self.report.notes:
                 lines.append(f"* {n}")
+        if self.report.verification:
+            lines.append("-- plan verification " + "-" * 34)
+            for v in self.report.verification:
+                lines.append(f"* {v}")
         graph = self.compiled.graph
         summary = "1 pure stage" if graph.is_pure else (
             f"{len(graph.stages)} stages, {graph.n_host_boundaries} host boundary(ies)"

@@ -310,9 +310,11 @@ def test_graph_cache_is_bounded_and_drops_a_collected_owners_graphs():
     try:
         owner = _Owner()
         serial = capture.new_owner(owner)
+        evicted = capture.evictions()
         for i in range(capture.GRAPH_CAPACITY + 6):
             capture.insert((serial, i), _Graph())
         assert capture.held() == (capture.GRAPH_CAPACITY, 10 * capture.GRAPH_CAPACITY)
+        assert capture.evictions() == evicted + 6
         assert capture.lookup((serial, 0)) is None  # least recently used: gone
         assert capture.lookup((serial, 6)) is not None
         other = _Owner()

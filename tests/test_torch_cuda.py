@@ -1176,3 +1176,96 @@ def test_kernels_launch_on_the_capturing_stream(dev):
         finally:
             graph.capture_end()
     assert ptr == side.cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Runtime selection and plan verification on the card
+# ---------------------------------------------------------------------------
+
+
+def test_corpus_measured_on_the_card(dev):
+    """Three pipelines of seed 1 measured on the card: every runtime's time
+    is finite (MLtoSQL takes these pipelines), the labels are the argmin and
+    the statistics are the pipelines' own."""
+    from repro_torch.core.corpus import build_corpus
+    from repro_torch.core.stats import pipeline_stats
+
+    corpus = build_corpus(n_pipelines=3, n_rows=2048, seed=1, device=dev)
+    assert corpus.stats.shape == (3, 22) and corpus.runtimes.shape == (3, 3)
+    assert np.isfinite(corpus.runtimes).all() and (corpus.runtimes > 0).all()
+    assert np.array_equal(corpus.labels, np.argmin(corpus.runtimes, axis=1))
+    assert np.array_equal(corpus.stats, np.stack([pipeline_stats(p) for p in corpus.pipelines]))
+
+
+def test_corpus_pushes_no_graph_out_of_the_capture_cache(dev, monkeypatch):
+    """A corpus measures twice as many plans as the capture cache has room
+    for, and leaves a query prepared before it as it was: its graphs stay
+    (no eviction, no capture on its next call) and nothing of the corpus is
+    held after it."""
+    from repro_torch.core.corpus import build_corpus
+    from repro_torch.exec import capture
+
+    db, t = _hospital_session(dev, False)
+    prep = db.sql(HOSPITAL_AGG).prepare(transform="dnn", params={"t": t})
+    want = prep()
+    traces, held, evicted = prep.compiled.traces, capture.held()[0], capture.evictions()
+    monkeypatch.setattr(capture, "GRAPH_CAPACITY", held + 3)
+    build_corpus(n_pipelines=3, n_rows=2048, seed=1, device=dev)
+    assert capture.evictions() == evicted
+    assert capture.held()[0] <= held
+    got = prep()
+    assert prep.compiled.traces == traces
+    assert np.array_equal(got["count_rows"], want["count_rows"])
+
+
+def test_verify_plan_of_a_fresh_optimizer_plan_runs_on_the_card(dev):
+    """A plan straight from the optimizer (its tensor programs built on the
+    CPU) verified against a card database: the abstract run moves the
+    programs to the card and launches the kernels there; asking for another
+    device than the database's is refused."""
+    from repro_torch.analysis import verifier
+    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+    from repro_torch.exec.stages import build_stage_graph
+    from repro_torch.relational.engine import TensorOp, walk_plan
+
+    db, t = _hospital_session(dev, False)
+    plan, _ = RavenOptimizer(options=OptimizerOptions(transform="dnn")).optimize(
+        db.sql(HOSPITAL_AGG).ir)
+    programs = [p.fn for p in walk_plan(plan) if isinstance(p, TensorOp)]
+    assert programs and all(next(m.buffers()).device.type == "cpu" for m in programs)
+    verifier._EXEC_MEMO.clear()
+    before = {n: LAUNCHES[n] for n in ("featurize", "tree_gemm", "segment_agg")}
+    assert verifier.verify_plan(plan, db.database, mode="strict") == ["plan: ok"]
+    assert all(LAUNCHES[n] > k for n, k in before.items()), (before, dict(LAUNCHES))
+    assert all(next(m.buffers()).device == db.database.device for m in programs)
+    with pytest.raises(ValueError, match="lies on"):
+        verifier.check_exec(build_stage_graph(plan), db.database, device="cpu")
+
+
+@pytest.mark.parametrize("transform,split", [("dnn", False), ("dnn", True),
+                                             ("sql", False), ("none", False)])
+def test_strict_verification_on_the_card(dev, transform, split):
+    """Every lowering of the hospital query verifies clean under
+    ``verify="strict"`` on the card (its abstract runs launch the kernels
+    there), answers as on the CPU, and a phantom output column is refused."""
+    from repro_torch.analysis import verifier
+    from repro_torch.errors import PlanVerificationError
+    from repro_torch.exec.stages import build_stage_graph
+
+    db, t = _hospital_session(dev, split)
+    verifier._EXEC_MEMO.clear()
+    before = LAUNCHES["segment_agg"]
+    prep = db.sql(HOSPITAL_AGG).prepare(transform=transform, params={"t": t}, verify="strict")
+    assert LAUNCHES["segment_agg"] > before  # the abstract runs, on the card
+    assert prep.report.verification[-1] == "prepare (stage graph): ok"
+    assert all(line.endswith(": ok") for line in prep.report.verification)
+    got = prep()
+    cpu, _ = _hospital_session("cpu", split)
+    want = cpu.sql(HOSPITAL_AGG).prepare(transform=transform, params={"t": t})()
+    assert np.array_equal(got["count_rows"], want["count_rows"])
+    np.testing.assert_allclose(got["mean_score"], want["mean_score"], rtol=1e-5)
+    graph = build_stage_graph(prep.compiled.graph.plan)
+    graph.stages[-1].out_columns += ("phantom",)
+    with pytest.raises(PlanVerificationError) as ei:
+        verifier.verify_graph(graph, db.database, mode="strict")
+    assert "schema-chain" in {v.rule for v in ei.value.violations}

@@ -14,6 +14,8 @@ reference's.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -155,8 +157,10 @@ def test_default_transform_resolves_to_none_and_matches_reference(quickstart, se
     plan, report = RavenOptimizer(options=OptimizerOptions()).optimize(db.sql(QUICKSTART).ir)
     assert report.transforms == {0: "none"}
     assert any(isinstance(p, teng.MLUdf) for p in teng.walk_plan(plan))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        RavenOptimizer(strategy=object())
+    # a strategy (ROADMAP item 9, ported) picks the runtime where none is forced
+    plan, report = RavenOptimizer(strategy=_Always("sql")).optimize(db.sql(QUICKSTART).ir)
+    assert report.transforms == {0: "sql"}
+    assert not any(isinstance(p, teng.MLUdf) for p in teng.walk_plan(plan))
 
 
 def test_sql_transform_matches_reference(quickstart, sessions):
@@ -459,8 +463,35 @@ def test_registry_publish_and_resolve_match_reference(quickstart):
 # What is not ported yet raises, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
+
+class _Always:
+    """A runtime-selection strategy that picks one runtime whatever the
+    pipeline's statistics (``choose`` is the strategies' interface)."""
+
+    def __init__(self, transform: str):
+        self.transform = transform
+
+    def choose(self, stats) -> str:
+        assert stats.shape == (22,)
+        return self.transform
+
+
+def _verified(prep, _db):
+    """``prepare(verify=True)`` (ROADMAP item 8, ported) checks the plan."""
+    assert prep.report.verification[-1] == "prepare (stage graph): ok"
+
+
+def _chosen(prep, _db):
+    """``prepare(strategy=...)`` (ROADMAP item 9, ported) runs the strategy's
+    runtime."""
+    assert prep.report.transforms == {0: "none"}
+    assert [s.kind for s in prep.compiled.stages] == ["pure", "host", "pure"]
+
+
 # serving is ported; what stays out of it is the model-version lifecycle:
-# serving with a circuit breaker, and the server's version verbs
+# serving with a circuit breaker, and the server's version verbs. The
+# verifier and runtime selection are ported: their entries hold a check of
+# the feature instead of a ROADMAP item
 NOT_PORTED = {
     "serve": (lambda db, prep: prep.serve(
         options=raven.ServeOptions(breaker_threshold=2)), "item 7"),
@@ -473,17 +504,22 @@ NOT_PORTED = {
     "name@shadow": (lambda db, prep: db.sql(
         "SELECT * FROM PREDICT(model='covid_risk@shadow', data=patients)"), "item 7"),
     "prepare verify": (lambda db, prep: prep.query.prepare(
-        transform="dnn", params={"threshold": 0.5}, verify=True), "item 8"),
+        transform="dnn", params={"threshold": 0.5}, verify=True), _verified),
     "prepare strategy": (lambda db, prep: prep.query.prepare(
-        strategy=object(), params={"threshold": 0.5}), "item 9"),
+        strategy=_Always("none"), params={"threshold": 0.5}), _chosen),
 }
 
 
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
 def test_unported_session_paths_raise_naming_their_item(sessions, what):
+    """Each path raises naming its ROADMAP item; the ported ones (items 8
+    and 9) work instead, and their check runs."""
     _, db = sessions
     prep = db.sql(QUICKSTART).prepare(transform="dnn", params={"threshold": 0.5})
     call, item = NOT_PORTED[what]
+    if callable(item):
+        item(call(db, prep), db)
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(db, prep)
 
@@ -495,12 +531,31 @@ def test_unported_session_paths_raise_naming_their_item(sessions, what):
     ({"options": ConnectOptions(faults=object())}, "item 7"),
     ({"verify": "strict"}, "item 8"),
     ({"options": ConnectOptions(verify=True)}, "item 8"),
-    ({"strategy": object()}, "item 9"),
+    ({"strategy": _Always("sql")}, "item 9"),
 ])
 def test_unported_connect_options_raise_naming_their_item(quickstart, kwargs, item):
-    ds = quickstart[0]
-    with pytest.raises(NotImplementedError, match=item):
-        raven.connect(ds.tables, device="cpu", **kwargs)
+    """The session knobs of item 7 raise naming it; those of items 8
+    (``verify``) and 9 (``strategy``), ported, open a session that applies
+    them to every prepared query."""
+    ds, _, port_pipe, score = quickstart
+    if item == "item 7":
+        with pytest.raises(NotImplementedError, match=item):
+            raven.connect(ds.tables, device="cpu", **kwargs)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # the legacy verify keyword
+        db = raven.connect(ds.tables, device="cpu", **kwargs)
+    db.register_model("covid_risk", port_pipe)
+    t = _gap_thresholds(score[ds.tables["patients"]["asthma"] == 1], (0.5,))[0]
+    prep = db.sql(QUICKSTART).prepare(params={"threshold": t})
+    if item == "item 8":
+        assert prep.report.transforms == {0: "none"}
+        assert prep.report.verification[0] == "input: ok"
+        assert prep.report.verification[-1] == "prepare (stage graph): ok"
+    else:
+        assert prep.report.transforms == {0: "sql"}
+    assert prep()["count_rows"][0] > 0
+    db.close()
 
 
 def test_connect_without_a_card_raises_unless_the_cpu_is_asked_for(quickstart, monkeypatch):
