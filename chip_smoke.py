@@ -40,7 +40,10 @@ the served phase registers the hospital query with the query server
 strategy phase builds a corpus of pipelines measured under the three
 runtimes on the card and prepares the hospital query through
 ``connect(strategy=...)``; the verify phase prepares every plan under
-``verify="strict"``; and a third path serves an LM through ``build_model(get_config(...)).init`` →
+``verify="strict"``; the lifecycle phase restarts the served query from
+the artifact store in fresh processes, swaps model versions under
+traffic, trips the circuit breaker and recovers a killed process's
+registry; and a third path serves an LM through ``build_model(get_config(...)).init`` →
 ``ServeEngine.submit`` → ``ServeEngine.run``, its decode tick one CUDA graph:
 
 * granite-3-8b at its published width and full depth (d_model 4096, 40
@@ -149,7 +152,30 @@ In order it
    the bucket out of proportion, each of which must raise
    ``PlanVerificationError`` naming its rule (``schema-chain``,
    ``bucket-safety``);
-10. zeroes the counts again and serves the LM workload with the decode tick
+10. the lifecycle phase, on the hospital ``dnn`` query: (a) child
+   processes (``chip_smoke.py --lifecycle-child``) serve one batch in each
+   of three buckets through ``connect(cache_dir=...)``: a cold child, a
+   warm child that must show disk hits, at least three buckets captured at
+   registration (``warm_start``), no capture and no trace on the request
+   path and the cold child's answers bit for bit, and a child with a
+   perturbed weight that misses every entry; each child's prepare+serve
+   time, time in ``warm_start`` and first-request latency are printed;
+   (b) in this process, under a stream of requests from three closed-loop
+   clients, v2 (the model's spec trained on another seed) is published and
+   warmed onto the route, shadowed (the mirror's diff counts printed),
+   split 25%, cut over, rolled back and retired: no request fails, each
+   answers as the host interpreter under the version that served it, the
+   cutover and the rollback capture nothing, and the capture cache is
+   printed before and after; (c) the fault drill: transient ``stage``
+   faults retried to answers bitwise the fault-free run's, and terminal
+   ones past ``breaker_threshold=2`` tripping the breaker onto the
+   fallback (the hospital query within rtol 1e-5 of the primary, a query
+   over the integral ``age`` column bitwise); (d) a child journals a
+   lifecycle and kills itself with ``SIGKILL``, and a fresh child's
+   ``db.recover()`` restores the same topology and answers, capturing
+   nothing on the request path; the counts, zeroed before, must show
+   ``featurize``, ``tree_gemm`` and ``segment_agg`` launched;
+11. zeroes the counts again and serves the LM workload with the decode tick
    captured (one graph, after one eager warm-up tick), printing prefill
    time per admission, the decode tick (median, p90), time to first token
    and generated tokens per second beside the eager run's; reads the
@@ -160,11 +186,11 @@ In order it
    versions and holds the eager run's tokens equal to them, step by step,
    up to the first near-tie between a step's top two logits; profiles a
    captured and an eager tick (the card's busy time and idle share);
-11. prints the run's total time, the kernel table as one JSON line
+12. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
-   strategy and verify phases, the LM serving run) and, last, the device
-   line
+   strategy, verify and lifecycle phases (its children's launches
+   included), the LM serving run) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -1907,6 +1933,493 @@ def grown_rows(graph) -> None:
     st.fn = fn
 
 
+# ---------------------------------------------------------------------------
+# Persistence and lifecycle: warm start across processes, versions under
+# traffic, the fault drill, crash recovery
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_SIZES = (1_000, 3_000, 10_000)  # one batch in each of three row buckets
+LIFECYCLE_STREAM = (900, 1_800, 3_600)     # the traffic's request sizes
+LIFECYCLE_CLIENTS = 3                       # closed-loop clients of the traffic
+LIFECYCLE_SEED = 1                          # v2: the same spec, another seed
+CHILD_TIMEOUT_S = 300
+DYADIC_QUERY = (
+    "SELECT COUNT(*), AVG(age), MIN(age), MAX(age) FROM PREDICT(model='m', "
+    "data=patients) AS p WHERE asthma = 1 AND score >= :t"
+)
+
+
+def lifecycle_batches(tables, sizes, start: int = 0) -> list[dict]:
+    """Slices of the patients table, one a size, at fixed offsets (the same
+    rows in every process)."""
+    cols = tables["patients"]
+    out, off = [], start
+    for n in sizes:
+        out.append({c: v[off:off + n] for c, v in cols.items()})
+        off += n + 7_919
+    return out
+
+
+def perturb_one_weight(pipe) -> None:
+    """Nudge one model weight: every content fingerprint downstream changes."""
+    for node in pipe.nodes:
+        for v in node.attrs.values():
+            if dataclasses.is_dataclass(v):
+                for f in dataclasses.fields(v):
+                    arr = getattr(v, f.name)
+                    if isinstance(arr, np.ndarray) and arr.dtype.kind == "f":
+                        arr += 1e-3
+                        return
+            elif isinstance(v, np.ndarray) and v.dtype.kind == "f":
+                v += 1e-3
+                return
+    raise RuntimeError("no float weight found to perturb")
+
+
+def answer_bits(out: dict) -> dict:
+    return {k: bits(v).tolist() for k, v in sorted(out.items())}
+
+
+def topology(db, name: str = "m") -> dict:
+    snap = db.models.snapshot()[name]
+    return {"live": snap["live"], "shadow": snap["shadow"], "split": snap["split"],
+            "routes": sorted(snap["routes"]),
+            "versions": [[v["version"], v["state"]] for v in snap["versions"]]}
+
+
+def lifecycle_child(argv: list[str]) -> int:
+    """One child process of the lifecycle phase (``chip_smoke.py
+    --lifecycle-child MODE JSON``), on the card, printing one JSON line:
+
+    * ``serve``: ``connect(cache_dir=...)``, the hospital query prepared
+      (``dnn``) and served, one batch flushed in each of three buckets; its
+      prepare+serve time, the time ``register`` spent in ``warm_start``, the
+      first request's latency, the captures and traces made on the request
+      path, the disk hits and warm-started buckets, the answers' bits;
+    * ``journal``: the same with v2 published, warmed and shadowed, the
+      store drained — then the process kills itself with ``SIGKILL``;
+    * ``recover``: a fresh session's ``db.recover()``, then the three
+      batches through the recovered route."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import signal
+
+    import repro_torch as raven
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.exec import capture
+    from repro_torch.kernels import _build
+    from repro_torch.ml.pipeline import load_pipeline
+
+    mode, args = argv[0], json.loads(argv[1])
+    tables = make_hospital(INFER_ROWS, seed=0).tables
+    db = raven.connect(tables, stats="auto", device=args.get("device"),
+                       options=raven.ConnectOptions(cache_dir=args["cache"]))
+    out: dict = {"mode": mode}
+    t0 = time.perf_counter()
+    if mode == "recover":
+        out["counts"] = db.recover()
+        out["recover_s"] = time.perf_counter() - t0
+        out["topology"] = topology(db)
+        submit = lambda b: db.server.submit("hospital", b)  # noqa: E731
+    else:
+        pipe = load_pipeline(args["pipe"])
+        if args.get("perturb"):
+            perturb_one_weight(pipe)
+        db.models.publish("m", pipe)
+        prep = db.sql(QUERY).prepare(transform="dnn", params={"t": args["t"]})
+        prep.serve("hospital")
+        out["prepare_serve_s"] = time.perf_counter() - t0
+        submit = prep.submit
+    out["warm_start_s"] = db.server.stats.warm_start_s
+    traces, captures = db.cache_stats()["traces"], capture.captures()
+    answers, first_ms = [], None
+    for batch in lifecycle_batches(tables, LIFECYCLE_SIZES):
+        t1 = time.perf_counter()
+        req = submit(batch)
+        db.flush()
+        res = req.wait(timeout=120.0)
+        first_ms = first_ms if first_ms is not None else 1e3 * (time.perf_counter() - t1)
+        answers.append(answer_bits(res))
+    stats = db.cache_stats()
+    out.update({
+        "answers": answers, "first_request_ms": first_ms,
+        "request_traces": stats["traces"] - traces,
+        "request_captures": capture.captures() - captures,
+        "disk_hits": stats["disk_hits"], "disk_misses": stats["disk_misses"],
+        "warm_started_buckets": stats["server"]["warm_started_buckets"],
+        "store": {k: stats["artifact_store"][k] for k in (
+            "plan_hits", "plan_saves", "stage_hits", "stage_saves", "skipped")},
+        "launches": {n: _build.LAUNCHES[n] for n in ("featurize", "tree_gemm", "segment_agg")},
+    })
+    if mode == "journal":
+        db.models.publish("m", load_pipeline(args["pipe2"]), warm="sync")
+        db.models.shadow("m", 2)
+        out["topology"] = topology(db)
+        db.artifact_store.drain()  # the stage structures reach disk before the crash
+        print(json.dumps(out), flush=True)
+        os.kill(os.getpid(), signal.SIGKILL)  # no close(), no atexit: a crash
+    db.close()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_child(mode: str, args: dict) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--lifecycle-child", mode,
+         json.dumps(args)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+    )
+
+
+def child_result(proc: subprocess.Popen, want_rc: int = 0) -> dict:
+    """Wait for a child (killing it past ``CHILD_TIMEOUT_S``); its last
+    stdout line, parsed."""
+    try:
+        stdout, stderr = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == want_rc, (proc.returncode, stderr[-3000:]))
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def host_scores(pipe, cols: dict) -> np.ndarray:
+    """The host interpreter's scores of ``pipe`` on ``cols``, in float64."""
+    from repro_torch.ml import run_pipeline
+
+    out = run_pipeline(pipe, {n: cols[n] for n in pipe.input_names()})
+    return np.asarray(out[pipe.outputs[0]], np.float64).reshape(-1)
+
+
+def traffic_baselines(prep, srv, batches, oracle, reps: int = 10) -> dict:
+    """Where a traffic request's latency goes, measured on the served route
+    before the lifecycle starts: medians over ``reps`` passes of the
+    stream's batches (each bucket of both paths captured first) of the
+    one-shot call, of one request submitted and flushed with the pump
+    stopped (the served path alone), of one closed-loop client through the
+    pump (adding its 2 ms coalescing window, which every request waits
+    out), and of ``LIFECYCLE_CLIENTS`` clients (adding their queueing).
+    Every answer is held against the host interpreter's under v1."""
+    import threading
+
+    def checked(i: int, out: dict) -> None:
+        count, avg = oracle["v1", i % len(batches)]
+        check(int(out["count_rows"][0]) == count, (i, out, count))
+        check(abs(float(out["mean_score"][0]) - avg) <= 1e-5 * abs(avg), (i, out, avg))
+
+    srv.stop_pump()
+    for b in batches:
+        prep(b)
+        prep.submit(b)
+        srv.flush()
+    one_shot, flushed = [], []
+    for _ in range(reps):
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            checked(i, prep(b))
+            one_shot.append(1e3 * (time.perf_counter() - t0))
+            req = prep.submit(b)
+            srv.flush()
+            checked(i, req.wait(timeout=120.0))
+            flushed.append(1e3 * req.latency_s)
+    srv.start_pump(2.0)
+
+    def clients(n: int) -> list[float]:
+        lat: list[float] = []
+
+        def client(k: int):
+            for i in range(k, reps * len(batches), n):
+                req = prep.submit(batches[i % len(batches)])
+                checked(i, req.wait(timeout=120.0))
+                lat.append(1e3 * req.latency_s)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(n)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=120)
+        check(len(lat) == reps * len(batches), f"{n} clients: {len(lat)} answers")
+        return lat
+
+    alone, together = clients(1), clients(LIFECYCLE_CLIENTS)
+    return {"one_shot_ms": float(np.median(one_shot)),
+            "submit_flush_ms": float(np.median(flushed)),
+            "one_client_pump_ms": float(np.median(alone)),
+            f"{LIFECYCLE_CLIENTS}_clients_pump_ms": float(np.median(together))}
+
+
+def lifecycle_traffic(case, pipe2, smi: str, device=None) -> None:
+    """(b) v1 served under a stream of requests from ``LIFECYCLE_CLIENTS``
+    closed-loop clients (the pump at 2 ms, one request a group), after
+    :func:`traffic_baselines` on the same route; in order:
+    v2 published and warmed onto the route,
+    shadowed, split 25%, cut over, rolled back, retired. No request may
+    fail; each answers as the host interpreter under the version that served
+    it; the cutover and the rollback capture nothing."""
+    import threading
+
+    import repro_torch as raven
+    from repro_torch.exec import capture
+
+    batches = lifecycle_batches(case["tables"], LIFECYCLE_STREAM * 2, start=40_000)
+    scores = {label: [host_scores(pipe, b) for b in batches]
+              for label, pipe in (("v1", case["pipe"]), ("v2", pipe2))}
+    # mid-way in a wide gap between both versions' scores
+    t = gap_thresholds(np.concatenate([x for xs in scores.values() for x in xs]), (0.5,))[0]
+    oracle = {}  # the host interpreter's (COUNT, AVG) of each batch and version
+    for label, xs in scores.items():
+        for i, (b, score) in enumerate(zip(batches, xs)):
+            mask = (b["asthma"] == 1) & (score >= t)
+            oracle[label, i] = (int(mask.sum()), float(score[mask].mean()))
+
+    db = raven.connect(case["tables"], stats="auto", device=device)
+    db.models.publish("m", case["pipe"])
+    prep = db.sql(QUERY).prepare(transform="dnn", params={"t": t})
+    prep.serve("traffic", options=raven.ServeOptions(max_latency_ms=2.0, max_coalesce=1))
+    srv = db.server
+    baseline = traffic_baselines(prep, srv, batches, oracle)
+    reqs: list = []
+    stop = threading.Event()
+
+    def client(k: int):
+        # closed loop: each client waits for its answer before it submits
+        # again, so the queue holds at most LIFECYCLE_CLIENTS requests
+        i = k
+        while not stop.is_set():
+            req = prep.submit(batches[i % len(batches)])
+            reqs.append((i % len(batches), req))
+            req.wait(timeout=120.0)
+            i += LIFECYCLE_CLIENTS
+
+    clients = [threading.Thread(target=client, args=(k,), name=f"lifecycle-client-{k}")
+               for k in range(LIFECYCLE_CLIENTS)]
+    for thread in clients:
+        thread.start()
+    deadline = time.perf_counter() + 60
+    while len(srv.route_snapshot("traffic")["ladder"]) < 3 and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    check(len(srv.route_snapshot("traffic")["ladder"]) == 3, srv.route_snapshot("traffic"))
+    before = capture_cache("lifecycle before v2")
+    steps = {}
+    marks: list[tuple[str, float]] = []  # each step's start, for the latency by step
+
+    def step(label, call, settle: float = 0.3):
+        t0 = time.perf_counter()
+        marks.append((label, t0))
+        call()
+        steps[label] = 1e3 * (time.perf_counter() - t0)
+        time.sleep(settle)
+
+    step("publish v2 (stage + warm)", lambda: db.models.publish("m", pipe2, warm="sync"))
+    step("shadow v2", lambda: db.models.shadow("m", 2))
+    shadow = srv.route_snapshot("traffic")["versions"]["v2"]
+    step("split v2 25%", lambda: db.models.split("m", {2: 0.25}))
+    recompiles, captures = srv.recompiles(), capture.captures()
+    step("cutover v2", lambda: db.models.cutover("m", 2))
+    check(srv.recompiles() == recompiles and capture.captures() == captures,
+          "the cutover of a warmed version captured a graph")
+    step("rollback to v1", lambda: db.models.rollback("m", reason="smoke drill"))
+    check(srv.recompiles() == recompiles and capture.captures() == captures,
+          "the rollback captured a graph")
+    route = srv.route_snapshot("traffic")
+    step("retire v2", lambda: db.models.retire("m", 2), settle=0.2)
+    stop.set()
+    for thread in clients:
+        thread.join(timeout=120)
+    served = {"v1": 0, "v2": 0}
+    lat = []
+    by_step: dict[str, list[float]] = {}  # latency by the step a request was submitted in
+    for i, req in reqs:
+        out = req.wait(timeout=120.0)  # raises where a request failed
+        served[req.served_by] += 1
+        lat.append(1e3 * req.latency_s)
+        label = next((name for name, t0 in reversed(marks) if req.t_submit >= t0),
+                     "before v2")
+        by_step.setdefault(label, []).append(lat[-1])
+        count, avg = oracle[req.served_by, i]
+        check(int(out["count_rows"][0]) == count, (req.served_by, i, out, count))
+        check(abs(float(out["mean_score"][0]) - avg) <= 1e-5 * abs(avg),
+              (req.served_by, i, out, avg))
+    check(served["v1"] > 0 and served["v2"] > 0, served)
+    after = capture_cache("lifecycle after retire")
+    print(f"lifecycle traffic [{smi}]:", json.dumps({
+        "requests": len(reqs), "served": served, "failed": 0,
+        "latency_ms_median": float(np.median(lat)), "latency_ms_max": max(lat),
+        "before_the_lifecycle": baseline,
+        "latency_ms_by_step": {k: {"requests": len(v), "median": float(np.median(v)),
+                                   "max": max(v)} for k, v in by_step.items()},
+        "step_ms": steps,
+        "shadow": {k: shadow[k] for k in ("shadow_groups", "shadow_rows", "shadow_diff_rows",
+                                          "shadow_max_abs_diff", "shadow_errors")},
+        "versions_at_rollback": {lb: {k: v[k] for k in ("groups", "traces", "graphs",
+                                                       "graph_evictions", "warm_deficit")}
+                                 for lb, v in route["versions"].items()},
+        "cutovers": route["cutovers"], "graphs_added": after["graphs"] - before["graphs"],
+    }), flush=True)
+    db.close()
+
+
+def fault_drill(case, t: float, smi: str, device=None) -> None:
+    """(c) Transient ``stage`` faults retried to answers bitwise the
+    fault-free run's; terminal faults past ``breaker_threshold=2`` trip the
+    breaker onto the fallback compiled with the relational kernels off: the
+    hospital query answers within rtol 1e-5 of the primary (``segment_agg``
+    and the torch composition sum in another order), the query over the
+    integral ``age`` column bitwise."""
+    import repro_torch as raven
+
+    batches = lifecycle_batches(case["tables"], LIFECYCLE_SIZES)
+
+    def served(query, faults=None, **serve):
+        db = raven.connect(case["tables"], stats="auto", device=device,
+                           options=raven.ConnectOptions(faults=faults))
+        db.models.publish("m", case["pipe"])
+        prep = db.sql(query).prepare(transform="dnn", params={"t": t})
+        prep.serve("drill", options=raven.ServeOptions(**serve))
+        return db, prep
+
+    def answers(db, prep):
+        outs = []
+        for b in batches:
+            req = prep.submit(b)
+            db.flush()
+            outs.append(req.wait(timeout=120.0))
+        return outs
+
+    want = {}
+    for query in (QUERY, DYADIC_QUERY):
+        db, prep = served(query)
+        want[query] = answers(db, prep)
+        db.close()
+    plan = raven.FaultPlan({"stage": {"times": 2}}, seed=11)
+    db, prep = served(QUERY, plan, retry=raven.RetryPolicy(max_attempts=4, backoff_ms=0.25))
+    for got, w in zip(answers(db, prep), want[QUERY]):
+        check_bitwise(got, w, "fault drill: transient stage faults vs fault-free")
+    retries = db.cache_stats()["server"]["retries"]
+    check(plan.injected() == {"stage": 2} and retries >= 1, (plan.injected(), retries))
+    db.close()
+    report = {"transient": {"injected": plan.injected(), "retries": retries}}
+    for query in (QUERY, DYADIC_QUERY):
+        plan = raven.FaultPlan({"stage": {"times": 2, "transient": False}}, seed=6)
+        db, prep = served(query, plan, breaker_threshold=2)
+        for _ in range(2):
+            req = prep.submit(batches[0])
+            try:
+                db.flush()
+            except raven.FaultInjectedError:
+                pass  # the terminal fault this drill injects: checked below
+            check(isinstance(req.error, raven.FaultInjectedError), req.error)
+        reg = db.server.queries["drill"]
+        check(reg.degraded and reg.fallback is not None
+              and reg.fallback.fingerprint != reg.compiled.fingerprint, "breaker did not trip")
+        rel = 0.0
+        for got, w in zip(answers(db, prep), want[query]):
+            if query == DYADIC_QUERY:
+                check_bitwise(got, w, "fault drill: degraded route on integral ages")
+            else:
+                check(np.array_equal(got["count_rows"], w["count_rows"]), (got, w))
+                r = abs(float(got["mean_score"][0]) / float(w["mean_score"][0]) - 1)
+                check(r <= 1e-5, (got, w))
+                rel = max(rel, r)
+        snap = db.server.route_snapshot("drill")["versions"]["v1"]
+        report["breaker, " + ("integral ages" if query == DYADIC_QUERY else "hospital")] = {
+            "trips": snap["breaker_trips"], "degraded": snap["degraded"],
+            "fallback_traces": snap["fallback_traces"], "max_rel_diff_avg": rel,
+        }
+        db.close()
+    print(f"lifecycle fault drill [{smi}]:", json.dumps(report), flush=True)
+
+
+def lifecycle_phase(case, thresholds, smi: str, device=None) -> dict[str, int]:
+    """The persistence and lifecycle phase, on the hospital ``dnn`` query at
+    full width:
+
+    (a) cold and warm start across processes: a child serves three buckets
+        with ``cache_dir`` (cold), a second child warm-starts from it (disk
+        hits, at least three warm-started buckets, no capture and no trace
+        on the request path, answers bitwise the cold child's), a third with
+        a perturbed weight misses every entry and captures live;
+    (b) versions under traffic (:func:`lifecycle_traffic`);
+    (c) the fault drill (:func:`fault_drill`);
+    (d) crash recovery: a child journals a lifecycle (v2 published and
+        shadowed) and is killed with ``SIGKILL``; a fresh child's
+        ``db.recover()`` restores the same topology and serves the same
+        answers, with no capture on the request path.
+
+    v2 (the model's spec trained on another seed) trains in a thread while
+    the first children run. Driven with the launch counts zeroed just before
+    it; returns its counts, the children's added. ``device`` is for a
+    rehearsal on the CPU (``"cpu"``); the script runs it on the card."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.ml.pipeline import save_pipeline
+
+    zero_counts()
+    work = tempfile.mkdtemp(prefix="raven-lifecycle-")
+    pipe1 = os.path.join(work, "v1.npz")
+    save_pipeline(case["pipe"], pipe1)
+    trained: dict = {}
+
+    def train_v2():
+        trained["case"] = hospital_case(TRAIN_ROWS, 1_000, N_ESTIMATORS, MAX_DEPTH,
+                                        seed=LIFECYCLE_SEED)
+
+    trainer = threading.Thread(target=train_v2, name="train-v2")
+    trainer.start()
+    t = thresholds[1]
+    store = os.path.join(work, "store")
+    base = {"t": t, "device": device}
+    cold = child_result(spawn_child("serve", {**base, "cache": store, "pipe": pipe1}))
+    warm = child_result(spawn_child("serve", {**base, "cache": store, "pipe": pipe1}))
+    trainer.join()
+    pipe2 = trained["case"]["pipe"]
+    pipe2_path = os.path.join(work, "v2.npz")
+    save_pipeline(pipe2, pipe2_path)
+    journal_dir = os.path.join(work, "journal")
+    perturbed = spawn_child("serve", {**base, "cache": store, "pipe": pipe1, "perturb": 1})
+    journal = spawn_child("journal", {**base, "cache": journal_dir, "pipe": pipe1,
+                                      "pipe2": pipe2_path})
+    perturbed, journal = child_result(perturbed), child_result(journal, -9)
+    recovered = child_result(spawn_child("recover", {**base, "cache": journal_dir}))
+    children = [cold, warm, perturbed, journal, recovered]
+    for label, r in zip(("cold", "warm", "perturbed", "journal", "recover"), children):
+        print(f"lifecycle child {label} [{smi}]:", json.dumps({
+            k: r.get(k) for k in ("prepare_serve_s", "recover_s", "warm_start_s",
+                                  "first_request_ms", "request_traces", "request_captures",
+                                  "disk_hits", "disk_misses", "warm_started_buckets",
+                                  "store", "launches", "counts", "topology")
+            if k in r}), flush=True)
+    check(cold["disk_hits"] == 0 and cold["request_traces"] >= len(LIFECYCLE_SIZES), cold)
+    check(warm["disk_hits"] > 0 and warm["warm_started_buckets"] >= len(LIFECYCLE_SIZES), warm)
+    check(warm["request_traces"] == 0 and warm["request_captures"] == 0,
+          f"the warm child captured on the request path: {warm}")
+    check(warm["answers"] == cold["answers"], "warm answers differ from the cold child's")
+    check(perturbed["disk_hits"] == 0
+          and perturbed["request_traces"] >= len(LIFECYCLE_SIZES), perturbed)
+    check(recovered["counts"]["recovered"] and recovered["counts"]["routes"] == 1
+          and recovered["counts"]["skipped"] == [], recovered["counts"])
+    check(recovered["topology"] == journal["topology"], (recovered["topology"],
+                                                        journal["topology"]))
+    check(recovered["answers"] == journal["answers"] == cold["answers"],
+          "the recovered route answered otherwise than before the crash")
+    check(recovered["request_captures"] == 0, recovered)
+    print("lifecycle (a), (d): warm child bitwise the cold, no request-path capture; "
+          "recovered topology and answers equal the journaled ones", flush=True)
+    lifecycle_traffic(case, pipe2, smi, device)
+    fault_drill(case, t, smi, device)
+    shutil.rmtree(work, ignore_errors=True)
+    counts = read_counts()
+    print("launches of the lifecycle phase in this process:", counts, flush=True)
+    check(all(counts[n] > 0 for n in ("featurize", "tree_gemm", "segment_agg")),
+          f"a kernel of the lifecycle phase was not launched: {counts}")
+    for r in children:
+        for name, n in r["launches"].items():
+            counts[name] += n
+    return counts
+
+
 def report_lm(traced: TracedModel, outputs: dict, wall: float, mode: str) -> dict:
     tokens = sum(len(o) for o in outputs.values())
     ttft = sorted(traced.first_token_s.values())
@@ -2041,7 +2554,9 @@ def main() -> int:
     mark("strategy phase")
     verified = verify_phase(case, session, thresholds, s_thresholds, tables, dev, smi)
     mark("verify phase")
-    for phase in (transforms, captured, served, selected, verified):
+    lifecycle = lifecycle_phase(case, thresholds, smi)
+    mark("lifecycle phase")
+    for phase in (transforms, captured, served, selected, verified, lifecycle):
         for name in KERNELS:
             counts[name] += phase[name]
 
@@ -2106,4 +2621,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lifecycle-child"]:
+        sys.exit(lifecycle_child(sys.argv[2:]))
     sys.exit(main())

@@ -13,7 +13,7 @@ Public surface:
     path's invariant checks (``RAVEN_ANALYSIS_ASSERTS``).
 
 The registry checks, the concurrency lint and the ``python -m`` gate are
-ROADMAP.md Queue 1 item 8's remainder, behind item 7.
+ROADMAP.md Queue 1 item 8's remainder, not ported yet.
 """
 from repro_torch.analysis.rules import (  # noqa: F401
     AnalysisResult,

@@ -82,9 +82,8 @@ class TransientError(RavenError):
 
 
 class FaultInjectedError(RavenError):
-    """An error raised by the deterministic fault-injection harness (not
-    ported yet: ROADMAP Queue 1 item 7). ``site`` names the injection
-    point."""
+    """An error raised by the deterministic fault-injection harness.
+    ``site`` names the injection point."""
 
     def __init__(self, site: str, token: str = ""):
         at = f" at {token}" if token else ""

@@ -51,6 +51,8 @@ CAPTURE_LOCK = threading.Lock()
 _graphs: "OrderedDict[tuple, StageCapture]" = OrderedDict()
 _serials = itertools.count()
 _evicted = 0  # graphs dropped to keep the cache at GRAPH_CAPACITY
+_evicted_of: dict[int, int] = {}  # owner serial -> its graphs dropped
+_captured = 0  # graphs captured in this process
 
 
 @contextmanager
@@ -259,6 +261,7 @@ def release(serial: int) -> None:
     with _lock:
         for k in [k for k in _graphs if k[0] == serial]:
             del _graphs[k]
+        _evicted_of.pop(serial, None)
 
 
 def lookup(key: tuple) -> Optional[StageCapture]:
@@ -270,18 +273,33 @@ def lookup(key: tuple) -> Optional[StageCapture]:
 
 
 def insert(key: tuple, graph: StageCapture) -> None:
-    global _evicted
+    global _evicted, _captured
     with _lock:
         _graphs[key] = graph
+        _captured += 1
         while len(_graphs) > GRAPH_CAPACITY:
-            _graphs.popitem(last=False)
+            (owner, *_), _ = _graphs.popitem(last=False)
             _evicted += 1
+            _evicted_of[owner] = _evicted_of.get(owner, 0) + 1
 
 
 def evictions() -> int:
     """Graphs the cache has dropped, least recently used first, to stay at
     ``GRAPH_CAPACITY`` (a graph dropped with its stage is not counted)."""
     return _evicted
+
+
+def captures() -> int:
+    """Graphs captured in this process so far (evicted ones included)."""
+    return _captured
+
+
+def owned(serial: int) -> tuple[int, int]:
+    """The graphs held under owner ``serial`` and those the cache dropped
+    to stay at ``GRAPH_CAPACITY``: a warmed bucket whose graph was dropped
+    is captured again on its next call."""
+    with _lock:
+        return sum(1 for k in _graphs if k[0] == serial), _evicted_of.get(serial, 0)
 
 
 def held() -> tuple[int, int]:

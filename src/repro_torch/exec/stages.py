@@ -109,8 +109,11 @@ def seg_bucket(k: int, min_bucket: int = 4) -> int:
 # ---------------------------------------------------------------------------
 
 
-def pure_step(plan, inner: Optional[Callable[[dict], State]]) -> Callable[[dict], State]:
-    """Compose one pure operator on top of ``inner`` (env -> state)."""
+def pure_step(plan, inner: Optional[Callable[[dict], State]],
+              kernels: Optional[bool] = None) -> Callable[[dict], State]:
+    """Compose one pure operator on top of ``inner`` (env -> state).
+    ``kernels`` is the relational-kernel mode of Join and Aggregate (None:
+    the ``RAVEN_KERNELS`` knob's)."""
     from repro_torch.relational.engine import (
         Aggregate,
         Filter,
@@ -140,7 +143,7 @@ def pure_step(plan, inner: Optional[Callable[[dict], State]]) -> Callable[[dict]
         # build_stage_graph so the two modes never alias
         from repro_torch.kernels.ops import kernels_enabled
 
-        use_kernels = kernels_enabled()
+        use_kernels = kernels_enabled() if kernels is None else kernels
 
         def fn(env, _plan=plan, _kern=use_kernels):
             from repro_torch.tensor.compile import (
@@ -208,7 +211,7 @@ def pure_step(plan, inner: Optional[Callable[[dict], State]]) -> Callable[[dict]
     if isinstance(plan, Aggregate):
         from repro_torch.kernels.ops import kernels_enabled
 
-        use_kernels = kernels_enabled()
+        use_kernels = kernels_enabled() if kernels is None else kernels
 
         def fn(env, _plan=plan, _kern=use_kernels):
             from repro_torch.tensor.compile import emit_aggregate_kernel
@@ -318,7 +321,10 @@ class Stage:
     ``:param`` slots the stage reads, ``in_columns`` the upstream stage's
     columns it consumes. ``traces`` counts the stage's
     specializations: captures on the card, first calls of an input
-    structure on the CPU. A host stage sums its time by part in ``host_s``:
+    structure on the CPU; ``disk_loads`` those that came from the artifact
+    store instead (:mod:`repro_torch.exec.artifact_store`), which keys its
+    entries on ``fingerprint`` only where ``content_stable`` (no component
+    of the chained hash was hashed by identity). A host stage sums its time by part in ``host_s``:
     ``sync`` (waiting for the card), ``down`` (the copy to the host and the
     compaction to valid rows), ``udf`` (the interpreter) and ``up`` (the
     copy back to the device).
@@ -337,6 +343,10 @@ class Stage:
     fn: Optional[Callable[[dict], State]] = None  # pure: raw env -> state
     runner: Optional[Callable[..., State]] = None  # pure: fn behind capture
     udf: Any = None  # host: the MLUdf plan node
+    # False when the chained fingerprint involves an identity-hashed (id())
+    # component: valid only in this process, so the artifact store never
+    # keys an entry on it
+    content_stable: bool = True
     traces: int = 0
     calls: int = 0
     total_s: float = 0.0
@@ -346,6 +356,9 @@ class Stage:
     # time spent on the boundary pool
     async_calls: int = 0
     dispatch_s: float = 0.0
+    # bucket structures served from the artifact store instead of being
+    # specialized live in this process (warm-start preloads and lazy hits)
+    disk_loads: int = 0
 
     @property
     def label(self) -> str:
@@ -506,7 +519,8 @@ def _segment_params(ops) -> frozenset[str]:
     return frozenset(names)
 
 
-def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
+def build_stage_graph(plan, pins: Optional[list] = None,
+                      kernels: Optional[bool] = None) -> StageGraph:
     """Lower a physical plan into its :class:`StageGraph`.
 
     Each pure segment gets an ``env -> state`` callable composed from
@@ -514,7 +528,9 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
     ``__mid__`` pseudo-table); each host segment carries its MLUdf node.
     Per-stage fingerprints chain: ``fp[i] = H(fp[i-1], ops[i])`` with each
     operator hashed shallowly; identity-hashed components land in ``pins``,
-    which the caller keeps alive.
+    which the caller keeps alive, and mark the stage (and every stage after
+    it, whose chained hash embeds it) ``content_stable=False``.
+    ``kernels`` is the relational-kernel mode (None: ``RAVEN_KERNELS``'s).
     """
     from repro_torch.core.fingerprint import fingerprint, node_fingerprint
     from repro_torch.kernels.ops import kernel_mode_token
@@ -524,35 +540,38 @@ def build_stage_graph(plan, pins: Optional[list] = None) -> StageGraph:
     stages: list[Stage] = []
     prev_fp = ""
     prev_out: Optional[list[str]] = None
+    prev_stable = True
     for idx, (kind, ops) in enumerate(plan_segments(plan)):
         stage_pins: list = []
         tokens = [node_fingerprint(op, pins=stage_pins) for op in ops]
         # the RAVEN_KERNELS mode changes the program run for Join /
         # Aggregate stages, so it must fork their fingerprints (only theirs)
         extra = (
-            [kernel_mode_token()]
+            [kernel_mode_token(kernels)]
             if any(isinstance(op, (Join, Aggregate)) for op in ops)
             else []
         )
         fp = fingerprint("stage", kind, prev_fp, tokens, *extra, pins=stage_pins)
+        stable = prev_stable and not stage_pins
         pins.extend(stage_pins)
         out_cols = _segment_out_cols(ops, prev_out)
         if kind == "pure":
             fn: Optional[Callable] = None if idx == 0 else _from_mid
             for op in ops:
-                fn = pure_step(op, fn)
+                fn = pure_step(op, fn, kernels)
             stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
                           out_columns=tuple(out_cols), reads=_segment_reads(ops),
                           in_columns=tuple(prev_out) if prev_out is not None else None,
-                          params=_segment_params(ops), fn=fn)
+                          params=_segment_params(ops), fn=fn, content_stable=stable)
         else:
             stage = Stage(index=idx, kind=kind, ops=ops, fingerprint=fp,
                           out_columns=tuple(out_cols),
                           in_columns=tuple(ops[0].pipeline.input_names()),
-                          udf=ops[0])
+                          udf=ops[0], content_stable=stable)
         stages.append(stage)
         prev_fp = fp
         prev_out = out_cols
+        prev_stable = stable
     return StageGraph(plan=plan, stages=stages)
 
 

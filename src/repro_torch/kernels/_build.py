@@ -68,6 +68,11 @@ SIGNATURES: dict[str, list] = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
+
+class KernelError(RuntimeError):
+    """A kernel of the library failed to build, to load or to launch."""
+
+
 # Launches of each kernel in this process: its wrapper adds one where it
 # launches the kernel (through :func:`launched`), and nowhere else; a CUDA
 # graph's replay adds the launches recorded into it. A caller that wants the
@@ -121,7 +126,7 @@ def _nvcc() -> str:
     fallback = Path("/usr/local/cuda/bin/nvcc")
     if fallback.exists():
         return str(fallback)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found: the CUDA kernels of repro_torch are built from "
         "source at first use and need the CUDA toolkit"
     )
@@ -152,7 +157,7 @@ def build() -> Path:
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{out}")
     if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        raise KernelError("nvcc failed:\n" + "\n".join(errors))
     tmp_lib = work / lib_path.name
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
@@ -160,7 +165,7 @@ def build() -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
-        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        raise KernelError("nvcc link failed:\n" + link.stdout)
     os.replace(tmp_lib, lib_path)  # atomic: a reader never sees half a file
     shutil.rmtree(work, ignore_errors=True)
     return lib_path
@@ -171,7 +176,11 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            path = build()
+            try:
+                handle = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
@@ -183,10 +192,11 @@ def lib() -> ctypes.CDLL:
 
 
 def check(name: str, err: int) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+    """Raise :class:`KernelError` if a C entry point reported a CUDA error
+    for its launch."""
     if err != 0:
         text = lib().raven_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} at launch: {text}")
+        raise KernelError(f"{name}: CUDA error {err} at launch: {text}")
 
 
 def require(t, name: str, dtype: torch.dtype, ndim: int, device) -> None:

@@ -10,6 +10,7 @@ keeps (the GEMM program's) is provably inert, see :func:`pad_gemm_program`.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,12 +42,14 @@ def kernels_enabled() -> bool:
     return os.environ.get("RAVEN_KERNELS", "on").lower() not in ("off", "0")
 
 
-def kernel_mode_token() -> str:
-    """Content token for the relational-kernel codegen mode, folded into the
-    fingerprints of stages (and plans) containing Join/Aggregate ops so the
-    two ``RAVEN_KERNELS`` modes never alias. The ``rt1`` prefix is this
-    package's own, so its tokens never equal the reference package's."""
-    return "rt1-on" if kernels_enabled() else "rt1-off"
+def kernel_mode_token(kernels: Optional[bool] = None) -> str:
+    """Content token for the relational-kernel codegen mode (``kernels``,
+    else the ``RAVEN_KERNELS`` knob's), folded into the fingerprints of
+    stages (and plans) containing Join/Aggregate ops so the two modes never
+    alias. The ``rt1`` prefix is this package's own, so its tokens never
+    equal the reference package's."""
+    on = kernels_enabled() if kernels is None else kernels
+    return "rt1-on" if on else "rt1-off"
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,8 @@ class ConnectOptions:
     # the session's lifetime (deterministic chaos drills; RAVEN_FAULTS is
     # the env equivalent), and the RollbackPolicy the model registry's
     # rollback guard enforces on live versions after a cutover
-    faults: Optional[Any] = None             # a FaultPlan (ROADMAP Queue 1 item 7)
-    rollback: Optional[Any] = None           # a RollbackPolicy (item 7)
+    faults: Optional[Any] = None             # a FaultPlan
+    rollback: Optional[Any] = None           # a RollbackPolicy
 
     @classmethod
     def resolve(
@@ -172,7 +172,7 @@ class ServeOptions:
     # fault tolerance: the queue's transient-failure RetryPolicy (None uses
     # the scheduler default) and the consecutive-failure count that trips
     # this query's circuit breaker onto the kernel-free fallback plan
-    retry: Optional[Any] = None              # a RetryPolicy (item 7)
+    retry: Optional[Any] = None              # a RetryPolicy
     breaker_threshold: Optional[int] = None
 
     @classmethod

@@ -127,23 +127,26 @@ from repro_torch.exec.stages import (  # noqa: E402  (plan nodes must exist firs
     seg_bucket,
 )
 from repro_torch.exec import capture  # noqa: E402
+from repro_torch.exec.artifact_store import TensorSpec, env_digest  # noqa: E402
 
 
-def plan_fingerprint(plan: PhysicalPlan, pins: Optional[list] = None) -> str:
+def plan_fingerprint(plan: PhysicalPlan, pins: Optional[list] = None,
+                     kernels: Optional[bool] = None) -> str:
     """Canonical content hash of a physical plan.
 
     Structurally identical plans hash equal. Opaque callables hash by
     identity and are reported via ``pins``; the compiled-plan cache keeps
     those alive so a fingerprint can never alias a dead closure's recycled
     id. Plans containing Join/Aggregate ops additionally fold in the
-    ``RAVEN_KERNELS`` mode token, so a plan cached under one mode is never
-    served under the other.
+    relational-kernel mode token (``kernels``, else the ``RAVEN_KERNELS``
+    knob's), so a plan cached under one mode is never served under the
+    other.
     """
     from repro_torch.core.fingerprint import fingerprint
     from repro_torch.kernels.ops import kernel_mode_token
 
     extra = (
-        [kernel_mode_token()]
+        [kernel_mode_token(kernels)]
         if any(isinstance(p, (Join, Aggregate)) for p in walk_plan(plan))
         else []
     )
@@ -162,7 +165,10 @@ class CacheStats:
     ``capture_input_copies`` the per-call inputs they copied into their
     graphs' buffers; ``graphs``/``graph_bytes`` in the snapshot are the
     graphs held and the card memory they hold, ``graph_evictions`` the
-    graphs the capture cache dropped to stay within its capacity."""
+    graphs the capture cache dropped to stay within its capacity.
+    ``disk_hits``/``disk_misses`` count the artifact store's loads that
+    skipped work (a persisted plan, a stored bucket structure) against
+    those that found nothing."""
 
     hits: int = 0
     misses: int = 0
@@ -171,6 +177,8 @@ class CacheStats:
     stage_traces: dict[str, int] = field(default_factory=dict)
     replays: int = 0
     capture_input_copies: int = 0
+    disk_hits: int = 0
+    disk_misses: int = 0
 
     def snapshot(self) -> dict[str, Any]:
         from repro_torch.exec import capture
@@ -183,6 +191,7 @@ class CacheStats:
             "capture_input_copies": self.capture_input_copies,
             "graphs": graphs, "graph_bytes": graph_bytes,
             "graph_evictions": capture.evictions(),
+            "disk_hits": self.disk_hits, "disk_misses": self.disk_misses,
         }
 
 
@@ -199,7 +208,27 @@ def clear_plan_cache() -> None:
     PLAN_CACHE_STATS.hits = PLAN_CACHE_STATS.misses = 0
     PLAN_CACHE_STATS.evictions = PLAN_CACHE_STATS.traces = 0
     PLAN_CACHE_STATS.replays = PLAN_CACHE_STATS.capture_input_copies = 0
+    PLAN_CACHE_STATS.disk_hits = PLAN_CACHE_STATS.disk_misses = 0
     PLAN_CACHE_STATS.stage_traces.clear()
+
+
+# The process-wide artifact store (disk tier under the in-memory LRU above).
+# ``repro_torch.connect(cache_dir=...)`` installs one; stage runners consult
+# it on each new bucket structure, so even CompiledPlans already resident in
+# the LRU pick up (or populate) the disk tier of whichever store is active.
+_ARTIFACT_STORE: Optional[Any] = None
+
+
+def set_artifact_store(store: Optional[Any]) -> Optional[Any]:
+    """Install (or clear, with None) the process-wide artifact store;
+    returns the previous one."""
+    global _ARTIFACT_STORE
+    prev, _ARTIFACT_STORE = _ARTIFACT_STORE, store
+    return prev
+
+
+def get_artifact_store() -> Optional[Any]:
+    return _ARTIFACT_STORE
 
 
 # -- the uploaded database and its baked dim-table sort orders ---------------
@@ -391,6 +420,46 @@ class CompiledPlan:
         """Stage specializations of this plan (captures on the card)."""
         return self.graph.traces
 
+    @property
+    def specializations(self) -> int:
+        """Distinct per-stage bucket structures this plan holds, however
+        they arrived (made live, or from the artifact store): ``traces``
+        alone undercounts warm coverage when the store preloaded buckets."""
+        return sum(st.traces + st.disk_loads for st in self.graph.stages
+                   if st.kind == "pure")
+
+    def graph_state(self) -> tuple[int, int]:
+        """The graphs this plan's stages hold in the capture cache, and
+        those the cache dropped to stay at its capacity (0 and 0 on the
+        CPU, which captures nothing)."""
+        held = evicted = 0
+        for stage in self.graph.stages:
+            if stage.runner is not None:
+                h, e = capture.owned(stage.runner.serial)
+                held, evicted = held + h, evicted + e
+        return held, evicted
+
+    def warm_start(self, store: Optional[Any] = None, database=None) -> int:
+        """Preload every bucket structure the artifact store holds for this
+        plan's stages; returns how many were loaded.
+
+        With ``database`` on the card (an uploaded :class:`Database`), each
+        structure's env is rebuilt on it and its graph captured now, off
+        the request path, so the first request of a previously served
+        bucket only replays. Otherwise (the CPU, or no database) each
+        structure is marked resolved: its first call on the CPU counts no
+        specialization, as the reference's deserialized programs trace
+        nothing; on the card that call captures, and counts the trace. A
+        structure whose resident tables do not match ``database`` is
+        skipped as a miss."""
+        store = store if store is not None else get_artifact_store()
+        if store is None:
+            return 0
+        if database is not None and database.device.type == "cuda":
+            place_programs(self.graph.plan, database.device)
+        return sum(stage.runner.preload(store, self.graph.plan, database)
+                   for stage in self.graph.stages if stage.runner is not None)
+
     def release(self) -> None:
         """Drop the graphs this plan's stages captured now, not when the
         stages are collected."""
@@ -468,7 +537,8 @@ class CompiledPlan:
 
 
 class _StageRunner:
-    """A pure stage's executable: eager on the CPU, captured on the card.
+    """A pure stage's executable: eager on the CPU, captured on the card,
+    with the artifact store's disk tier under both.
 
     On the card each key (the env's structure, shapes, dtypes and device;
     :func:`repro_torch.exec.capture.env_key`) gets one CUDA graph, captured
@@ -479,12 +549,27 @@ class _StageRunner:
     eagerly and counts nothing. The reference's fault sites are here:
     ``"latency"`` and ``"stage"`` on every call, ``"compile"`` where a
     specialization is made.
+
+    With an artifact store active, the first call of each key computes its
+    bucket structure's digest (:func:`~repro_torch.exec.artifact_store.env_digest`,
+    the store's key) and consults the store under the stage's chained
+    fingerprint. A miss specializes live and hands the structure to the
+    store's writer thread, so the next process starts warm. On the CPU a
+    stored structure makes the specialization a disk load (``disk_loads``,
+    ``disk_hits``), not a trace, as the reference's deserialized programs.
+    On the card a structure saves work only when :meth:`preload` captured
+    its graph before the request: found at call time, the graph is captured
+    on the request path and counts as the trace it is. The per-digest
+    outcome is memoized: ``"live"`` (made here), ``"stored"`` (loaded, not
+    yet specialized) or ``"disk"`` (specialized from the store).
     """
 
     def __init__(self, stage):
         self.stage = stage
         self.serial = capture.new_owner(self)
         self._seen: set = set()  # keys run on the CPU
+        self._resolved: set = set()  # keys whose digest was looked up
+        self._known: dict[str, str] = {}  # env digest -> its outcome
         self._lock = threading.Lock()
 
     def _trace(self) -> None:
@@ -495,6 +580,11 @@ class _StageRunner:
             PLAN_CACHE_STATS.traces += 1
             PLAN_CACHE_STATS.stage_traces[fp] = PLAN_CACHE_STATS.stage_traces.get(fp, 0) + 1
 
+    def _disk_load(self) -> None:
+        with _STATS_LOCK:
+            self.stage.disk_loads += 1
+            PLAN_CACHE_STATS.disk_hits += 1
+
     def __call__(self, env: dict, donate: frozenset = frozenset()):
         stage = self.stage
         # fault sites: "latency" stalls the stage, "stage" raises at call
@@ -504,12 +594,59 @@ class _StageRunner:
         if not capture.enabled():
             return stage.fn(env)
         key = capture.env_key(env)
+        store = get_artifact_store()
+        if store is None or not stage.content_stable:
+            # an identity-hashed fingerprint means nothing in another
+            # process (and a recycled id could alias another stage), so an
+            # unstable stage never touches the disk tier
+            return self._run(env, key, donate)
+        with self._lock:
+            resolved = key in self._resolved
+        if resolved:
+            return self._run(env, key, donate)
+        digest = env_digest(env)
+        cuda = env_device(env).type == "cuda"
+        with self._lock:
+            known = self._known.get(digest)
+        if known is None:
+            if store.load_stage(stage.fingerprint, digest) is None:
+                with self._lock:
+                    self._known[digest] = "live"
+                    self._resolved.add(key)
+                with _STATS_LOCK:
+                    PLAN_CACHE_STATS.disk_misses += 1
+                out = self._run(env, key, donate)
+                store.save_stage_async(stage.fingerprint, digest, env,
+                                       _volatile(env, donate))
+                return out
+            if cuda:
+                # not preloaded: the capture happens here, on the request
+                # path, and saves nothing
+                with self._lock:
+                    self._known[digest] = "live"
+                    self._resolved.add(key)
+                return self._run(env, key, donate)
+            self._disk_load()
+            known = "stored"
+        with self._lock:
+            self._resolved.add(key)
+            if known == "stored":
+                self._known[digest] = "disk"
+        # a structure marked without a card database (warm_start(database=
+        # None)) is captured here all the same, and counted
+        return self._run(env, key, donate, quiet=known == "stored" and not cuda)
+
+    def _run(self, env: dict, key: tuple, donate: frozenset, quiet: bool = False):
+        """Run (or capture and replay) the stage for ``env`` (its
+        :func:`capture.env_key` ``key``); a new key counts a trace unless
+        ``quiet`` (a specialization from the store)."""
+        stage = self.stage
         device = env_device(env)
         if device.type != "cuda":
             with self._lock:
                 new = key not in self._seen
                 self._seen.add(key)
-            if new:
+            if new and not quiet:
                 try:
                     self._trace()
                 except BaseException:
@@ -524,7 +661,8 @@ class _StageRunner:
             with capture.CAPTURE_LOCK:
                 graph = capture.lookup(gkey)
                 if graph is None:
-                    self._trace()
+                    if not quiet:
+                        self._trace()
                     graph = capture.StageCapture(stage, env, volatile, device)
                     capture.insert(gkey, graph)
                     fresh = True
@@ -534,26 +672,101 @@ class _StageRunner:
             PLAN_CACHE_STATS.capture_input_copies += copies
         return state
 
+    def preload(self, store, plan: PhysicalPlan, database=None) -> int:
+        """Load every stored bucket structure of this stage this process
+        has not resolved yet (see :meth:`CompiledPlan.warm_start`); returns
+        how many were loaded."""
+        stage = self.stage
+        if not stage.content_stable:
+            return 0
+        n = 0
+        for digest in store.stage_digests(stage.fingerprint):
+            with self._lock:
+                if digest in self._known:
+                    # already resolved here, including structures this
+                    # process specialized live and saved itself: loading
+                    # those would count a disk warm start for work that
+                    # never crossed a process boundary
+                    continue
+            stored = store.load_stage(stage.fingerprint, digest)
+            if stored is None:
+                continue
+            if database is None or database.device.type != "cuda":
+                with self._lock:
+                    self._known[digest] = "stored"
+            else:
+                env = _stored_env(stored, plan, database)
+                if env is None or env_digest(env) != digest:
+                    with _STATS_LOCK:
+                        PLAN_CACHE_STATS.disk_misses += 1
+                    continue
+                key = capture.env_key(env)
+                donated = frozenset(k for k in stored.volatile if k not in VOLATILE_KEYS)
+                self._run(env, key, donated, quiet=True)
+                with self._lock:
+                    self._known[digest] = "disk"
+                    self._resolved.add(key)
+            self._disk_load()
+            n += 1
+        return n
 
-def _build_compiled(plan: PhysicalPlan, fingerprint: str, pins: list) -> CompiledPlan:
-    graph = build_stage_graph(plan, pins=pins)
+
+def _volatile(env: dict, donate: frozenset) -> frozenset:
+    """The per-call keys of an env: ``VOLATILE_KEYS`` and donated tables."""
+    return frozenset(k for k in env if k in VOLATILE_KEYS or k in donate)
+
+
+def _zeros(spec, device):
+    """A zero-filled tree of tensors for an abstract (sub)env."""
+    if isinstance(spec, TensorSpec):
+        return torch.zeros(spec.shape, dtype=getattr(torch, spec.dtype), device=device)
+    if isinstance(spec, dict):
+        return {k: _zeros(v, device) for k, v in spec.items()}
+    raise ValueError(f"no per-call value for a {spec!r} leaf")
+
+
+def _stored_env(stored, plan: PhysicalPlan, database) -> Optional[dict]:
+    """A stored bucket's env on ``database``: its per-call keys zero-filled
+    at their stored shapes, its resident tables and dim sorts the
+    database's own (the tensors a request reads, so the graph captured for
+    it is the one the request replays); None where the database lacks a
+    table it names."""
+    base = build_env(plan, database, database.device, None, None, None)
+    env: dict[str, Any] = {}
+    for k, spec in stored.structure.items():
+        if k in stored.volatile:
+            env[k] = _zeros(spec, database.device)
+        elif k in base:
+            env[k] = base[k]
+        else:
+            return None
+    return env
+
+
+def _build_compiled(plan: PhysicalPlan, fingerprint: str, pins: list,
+                    kernels: Optional[bool]) -> CompiledPlan:
+    graph = build_stage_graph(plan, pins=pins, kernels=kernels)
     for stage in graph.stages:
         if stage.kind == "pure":
             stage.runner = _StageRunner(stage)
     return CompiledPlan(fingerprint=fingerprint, graph=graph, pins=pins)
 
 
-def compile_plan(plan: PhysicalPlan, cache: bool = True) -> CompiledPlan:
+def compile_plan(plan: PhysicalPlan, cache: bool = True,
+                 kernels: Optional[bool] = None) -> CompiledPlan:
     """Compile a plan into a reusable executable over a database dict.
 
     Compiled plans are cached in a module-level LRU keyed by plan
     fingerprint, so repeated compile/execute of an identical plan reuses the
-    lowered stages. ``cache=False`` forces a fresh compile.
+    lowered stages. ``cache=False`` forces a fresh compile. ``kernels``
+    sets the relational-kernel mode of this compile alone (``False``: Join
+    and Aggregate run the torch composition, not ``gather_join`` /
+    ``segment_agg``); None reads the ``RAVEN_KERNELS`` knob.
     """
     pins: list = []
-    fp = plan_fingerprint(plan, pins=pins)
+    fp = plan_fingerprint(plan, pins=pins, kernels=kernels)
     if not cache:
-        return _build_compiled(plan, fp, pins)
+        return _build_compiled(plan, fp, pins, kernels)
     entry = _PLAN_CACHE.get(fp)
     if entry is not None:
         PLAN_CACHE_STATS.hits += 1
@@ -561,7 +774,7 @@ def compile_plan(plan: PhysicalPlan, cache: bool = True) -> CompiledPlan:
         _PLAN_CACHE[fp] = entry
         return entry
     PLAN_CACHE_STATS.misses += 1
-    entry = _build_compiled(plan, fp, pins)
+    entry = _build_compiled(plan, fp, pins, kernels)
     _PLAN_CACHE[fp] = entry
     while len(_PLAN_CACHE) > PLAN_CACHE_CAPACITY:
         _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))

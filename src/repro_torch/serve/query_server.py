@@ -32,10 +32,37 @@ prediction query is optimized once and then served at high request rates:
 Without a pump the server stays synchronous — ``submit`` enqueues, ``flush``
 drains — so tests and examples can drive it deterministically.
 
-Each served name holds one version of its query. The reference's model
-lifecycle on top of that (``stage_version``, ``warm_version``,
-``set_shadow``, ``set_split``, ``cutover``, ``retire_version``, the circuit
-breaker) raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 7.
+**Versioned routing** (the model-lifecycle layer): every registration owns a
+:class:`QueryRoute` that can hold *several* :class:`RegisteredQuery`
+versions of the same serve name — one live, others staged.
+``stage_version`` compiles an incoming version without touching routing,
+``warm_version`` replays the route's observed bucket ladder through it (so
+its graphs are captured *before* any traffic reaches them), and ``cutover``
+atomically swaps the routed version under the scheduler's hold: groups
+already dispatched hold their version's registration and complete on it,
+groups popped after the swap run the new one — zero dropped requests, zero
+captures when the incoming version is warm. ``set_shadow`` mirrors every
+coalesced group through a staged version whose results are diffed and
+counted but never returned; ``set_split`` routes a deterministic fraction
+of groups to staged versions (smooth weighted round-robin, per-version
+stats). The route-level token keeps submit handles valid across cutovers —
+only a true re-``register`` (new plan under the same name) invalidates
+them. A registration's **circuit breaker** trips after
+``breaker_threshold`` consecutive dispatch failures onto a fallback plan
+compiled with the relational kernels off (``compile_plan(kernels=False)``);
+a kernel's own build or launch failure fails its requests and never counts
+toward the breaker.
+
+The capture cache holds ``capture.GRAPH_CAPACITY`` graphs for the whole
+process, and two warmed versions hold a ladder each: a warmed version's
+graph the cache dropped is shown in ``route_snapshot`` (``graphs``,
+``graph_evictions``) and counts in the warm deficit a cutover checks, and
+``warm_version`` captures it again.
+
+With an artifact store active, ``register`` and ``stage_version`` preload
+every bucket structure stored for the plan's stages
+(``CompiledPlan.warm_start``): on the card their graphs are captured there,
+before the first request, and counted in ``warm_started_buckets``.
 Under a verify mode other than ``off`` (the optimizer options' ``verify``,
 else ``RAVEN_VERIFY``), ``register`` re-verifies the stage graph it will
 serve, abstract execution included, against the registered tables.
@@ -45,6 +72,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -60,30 +88,29 @@ from repro_torch.core.optimizer import OptimizationReport, OptimizerOptions, Rav
 from repro_torch.device import resolve_device
 from repro_torch.errors import (
     RavenError,
+    RegistryStateError,
     RequestTimeoutError,
     StaleQueryError,
     TransientError,
+    UnknownModelVersionError,
     UnknownQueryError,
     check_params,
 )
 from repro_torch.exec.faults import RetryPolicy, get_fault_plan, maybe_inject
 from repro_torch.exec.pipeline import PipelineExecutor
 from repro_torch.exec.scheduler import Scheduler
+from repro_torch.exec.stages import seg_bucket
+from repro_torch.kernels._build import KernelError
 from repro_torch.relational.engine import (
     CompiledPlan,
     Database,
     PhysicalPlan,
     Scan,
     compile_plan,
+    get_artifact_store,
     plan_params,
     upload_database,
     walk_plan,
-)
-
-LIFECYCLE_NOT_PORTED = (
-    "the model-version lifecycle (staged versions, warm replay, shadow, "
-    "split, cutover, retirement and the circuit breaker) is not ported yet: "
-    "ROADMAP.md Queue 1 item 7, persistence and lifecycle"
 )
 
 
@@ -121,6 +148,7 @@ class QueryRequest:
     query: str
     columns: dict[str, np.ndarray]
     n_rows: int
+    served_by: str = ""  # version label of the registration that served it
     result: Optional[dict[str, np.ndarray]] = None
     done: bool = False
     error: Optional[BaseException] = None  # execution failure, re-raised by wait()
@@ -177,8 +205,36 @@ class ServerStats:
     flushes: int = 0             # dispatched request groups
     rows_in: int = 0
     rows_padded: int = 0
+    warm_started_buckets: int = 0  # bucket structures preloaded from the
+    #                                artifact store at registration time
+    warm_start_s: float = 0.0    # seconds registration spent preloading them
+    cutovers: int = 0            # atomic version swaps completed
+    shadow_mirrored_groups: int = 0  # groups mirrored to a shadow version
+    warm_replayed_buckets: int = 0   # ladder entries replayed by warm_version
+    breaker_trips: int = 0       # registrations degraded to the fallback plan
 
     def snapshot(self) -> dict[str, int]:
+        return dict(self.__dict__)
+
+
+@dataclass
+class VersionStats:
+    """Per-version serving counters, kept on the :class:`QueryRoute`."""
+
+    groups: int = 0              # dispatched groups this version executed
+    requests: int = 0
+    rows: int = 0
+    errors: int = 0              # dispatched groups that failed on this
+    #                              version — counted even when the scheduler
+    #                              retried the group to success, so a rollback
+    #                              guard sees trouble before users do
+    shadow_groups: int = 0       # mirrored groups this version scored
+    shadow_rows: int = 0         # mirrored rows compared against the primary
+    shadow_diff_rows: int = 0    # compared rows that were not bitwise equal
+    shadow_max_abs_diff: float = 0.0  # largest numeric divergence observed
+    shadow_errors: int = 0       # mirrored executions that raised (contained)
+
+    def snapshot(self) -> dict[str, Any]:
         return dict(self.__dict__)
 
 
@@ -197,13 +253,45 @@ class RegisteredQuery:
     has_aggregate: bool
     param_names: frozenset[str] = frozenset()
     params: dict[str, Any] = field(default_factory=dict)
+    version_label: str = "v1"     # which model version this registration runs
     donate: bool = True  # padded entry buffers are single-use
+    warmed: bool = False          # warm_version covered the route ladder
+    # (bucket, seg_slots) entries this registration has executed or replayed
+    # — the per-version warm coverage the cutover gate checks
+    warmed_ladder: set = field(default_factory=set)
+    # graphs of this registration the capture cache had dropped when
+    # warm_version last ran: any dropped since is a warm deficit
+    warm_evictions: int = 0
+    # circuit breaker: `breaker_threshold` consecutive dispatch failures trip
+    # this registration onto a fallback plan compiled with the relational
+    # kernels off (fingerprint-forked) — a persistent kernel/compile fault
+    # degrades the query instead of failing every request forever
+    breaker_threshold: int = 3
+    breaker_failures: int = 0     # consecutive failures; reset on success
+    breaker_trips: int = 0
+    degraded: bool = False
+    fallback: Optional[CompiledPlan] = None
+
+    @property
+    def active(self) -> CompiledPlan:
+        """The plan serving this registration's traffic right now: the
+        kernel-free fallback once the breaker tripped (and its compile
+        landed), the primary compiled plan otherwise."""
+        fb = self.fallback
+        return fb if (self.degraded and fb is not None) else self.compiled
 
     @property
     def recompiles(self) -> int:
-        """Stage specializations of this query's compiled plan: captures on
-        the card, new input structures on the CPU."""
-        return self.compiled.traces
+        """Stage specializations of this query's compiled plan (fallback
+        included once the breaker tripped): captures on the card, new input
+        structures on the CPU."""
+        fb = self.fallback
+        return self.compiled.traces + (fb.traces if fb is not None else 0)
+
+    def graph_deficit(self) -> int:
+        """Graphs of this registration the capture cache dropped since
+        ``warm_version`` last covered it (0 on the CPU)."""
+        return self.compiled.graph_state()[1] - self.warm_evictions
 
     @property
     def sliceable(self) -> bool:
@@ -212,6 +300,98 @@ class RegisteredQuery:
         needed. False once a host boundary (compaction) or an aggregate
         (folding) breaks the alignment."""
         return not self.compiled.graph.needs_segments
+
+
+@dataclass
+class QueryRoute:
+    """Versioned routing state for one serve name.
+
+    The ``token`` lives here, not on any one registration: submit handles
+    stay valid across cutovers (the whole point of a hot swap) and only a
+    fresh ``register`` under the same name — a genuinely different query —
+    mints a new token and stales old handles. ``ladder`` records every
+    (row bucket, segment-slot bucket) combination this route has executed;
+    it is exactly what ``warm_version`` must replay through an incoming
+    version for a zero-capture cutover.
+    """
+
+    name: str
+    token: str
+    live: str                                     # live version label
+    versions: dict[str, RegisteredQuery] = field(default_factory=dict)
+    shadow: Optional[str] = None                  # mirrored version label
+    split: dict[str, float] = field(default_factory=dict)  # label -> fraction
+    stats: dict[str, VersionStats] = field(default_factory=dict)
+    ladder: set = field(default_factory=set)      # (bucket, seg_slots) seen
+    # columns a submitted batch must carry: the union of scan columns over
+    # every version that can currently receive traffic (live, shadow, split)
+    required: set = field(default_factory=set)
+    cutovers: int = 0
+    # entries the last cutover's incoming version had NOT warmed (nonzero
+    # only when forced with require_warm=False)
+    last_cutover_deficit: int = 0
+    _wrr: dict[str, float] = field(default_factory=dict)  # smooth-WRR credit
+    # per-version rolling request latencies (ms, bounded window) — the p99
+    # signal the registry's rollback guard compares against its baseline
+    latencies: dict[str, deque] = field(default_factory=dict, repr=False)
+
+    def version_stats(self, label: str) -> VersionStats:
+        st = self.stats.get(label)
+        if st is None:
+            st = self.stats[label] = VersionStats()
+        return st
+
+    def record_latency(self, label: str, ms: float) -> None:
+        dq = self.latencies.get(label)
+        if dq is None:
+            dq = self.latencies[label] = deque(maxlen=256)
+        dq.append(float(ms))
+
+    def warm_deficit(self, reg: RegisteredQuery) -> int:
+        """Ladder entries ``reg`` has not replayed, plus its graphs the
+        capture cache dropped since ``warm_version`` last covered it: what a
+        cutover onto it would capture on the request path."""
+        return len(self.ladder - reg.warmed_ladder) + reg.graph_deficit()
+
+    def p99_ms(self, label: str) -> float:
+        """p99 over the version's rolling latency window (0.0 when empty)."""
+        xs = sorted(self.latencies.get(label) or ())
+        if not xs:
+            return 0.0
+        return xs[min(len(xs) - 1, int(len(xs) * 0.99))]
+
+    def snapshot(self) -> dict[str, Any]:
+        """The route's state; each version's row also carries the graphs
+        its stages hold in the capture cache and those the cache dropped
+        (``graphs``, ``graph_evictions``) and its ``warm_deficit``."""
+        versions = {}
+        for label, reg in self.versions.items():
+            graphs, evicted = reg.compiled.graph_state()
+            versions[label] = {
+                "plan_fingerprint": reg.compiled.fingerprint,
+                "warmed": reg.warmed,
+                "traces": reg.compiled.traces,
+                "degraded": reg.degraded,
+                "breaker_failures": reg.breaker_failures,
+                "breaker_trips": reg.breaker_trips,
+                "fallback_traces": (
+                    reg.fallback.traces if reg.fallback is not None else 0
+                ),
+                "p99_ms": self.p99_ms(label),
+                **self.version_stats(label).snapshot(),
+                "graphs": graphs,
+                "graph_evictions": evicted,
+                "warm_deficit": self.warm_deficit(reg),
+            }
+        return {
+            "live": self.live,
+            "shadow": self.shadow,
+            "split": dict(self.split),
+            "cutovers": self.cutovers,
+            "last_cutover_deficit": self.last_cutover_deficit,
+            "ladder": sorted(self.ladder),
+            "versions": versions,
+        }
 
 
 class PredictionQueryServer:
@@ -233,7 +413,8 @@ class PredictionQueryServer:
         # (the A/B baseline)
         self.pipelined = pipelined
         self.stats = ServerStats()
-        self.queries: dict[str, RegisteredQuery] = {}
+        self.queries: dict[str, RegisteredQuery] = {}  # live registrations
+        self.routes: dict[str, QueryRoute] = {}        # versioned routing
         self.executor = PipelineExecutor(workers=2)
         self.scheduler = Scheduler(
             self._dispatch_group,
@@ -264,6 +445,7 @@ class PredictionQueryServer:
         max_latency_ms: Optional[float] = None,
         max_pending: Optional[int] = None,
         max_coalesce: Optional[int] = None,
+        version_label: str = "v1",
         donate: bool = True,
         retry: Optional[RetryPolicy] = None,
         breaker_threshold: Optional[int] = None,
@@ -283,13 +465,54 @@ class PredictionQueryServer:
         queries), ``max_pending`` its backpressure bound, ``max_coalesce``
         the most rows one dispatched group may take, ``retry`` the
         transient-failure :class:`~repro_torch.exec.faults.RetryPolicy`.
-        ``donate=False`` keeps the padded entry buffers out of the donated
-        set. Re-registering an existing name mints a new token — outstanding
-        submit handles go stale. A ``breaker_threshold`` raises (ROADMAP
-        item 7).
+
+        ``version_label`` names this registration in the versioned route
+        created for ``name`` (further versions arrive via
+        :meth:`stage_version`); ``donate=False`` keeps the padded entry
+        buffers out of the donated set; ``breaker_threshold`` is the
+        consecutive-failure count that trips this query's circuit breaker
+        onto the kernel-free fallback plan. Re-registering an existing name
+        replaces its whole route and mints a new token — outstanding submit
+        handles go stale.
         """
+        token = f"route#{next(self._reg_serial)}"
+        reg = self._build_registration(
+            name, query, database, fact_table,
+            optimized=optimized, params=params, token=token,
+            version_label=version_label, donate=donate,
+        )
         if breaker_threshold is not None:
-            raise NotImplementedError(f"a circuit breaker: {LIFECYCLE_NOT_PORTED}")
+            reg.breaker_threshold = max(1, int(breaker_threshold))
+        route = QueryRoute(name=name, token=token, live=version_label)
+        route.versions[version_label] = reg
+        route.required = set(reg.scan_columns)
+        with self._lock:
+            self.routes[name] = route
+            self.queries[name] = reg
+        self.scheduler.configure(
+            name, max_latency_ms=max_latency_ms, max_pending=max_pending,
+            max_coalesce=max_coalesce, retry=retry,
+        )
+        with self._lock:
+            self.stats.queries_registered += 1
+        return reg
+
+    def _build_registration(
+        self,
+        name: str,
+        query: PredictionQuery,
+        database: dict,
+        fact_table: Optional[str] = None,
+        *,
+        optimized: Optional[tuple[PhysicalPlan, OptimizationReport]] = None,
+        params: Optional[dict[str, Any]] = None,
+        token: str = "",
+        version_label: str = "v1",
+        donate: bool = True,
+    ) -> RegisteredQuery:
+        """Optimize/compile/verify/warm-start one version's registration
+        (shared by :meth:`register` and :meth:`stage_version`); installs no
+        routing state."""
         if optimized is not None:
             # externally optimized (the session's PreparedQuery path): key
             # on the supplied plan rather than seeding the (query, server
@@ -324,6 +547,15 @@ class PredictionQueryServer:
             report.verification += [
                 ln for ln in lines if ln not in report.verification
             ]
+        # warm start: every bucket structure the artifact store holds for
+        # this plan's stages, captured on the registered tables now, so
+        # previously served shapes replay from the very first submit
+        if get_artifact_store() is not None:
+            t0 = time.perf_counter()
+            warmed = compiled.warm_start(database=db)
+            with self._lock:
+                self.stats.warm_started_buckets += warmed
+                self.stats.warm_start_s += time.perf_counter() - t0
         param_names = frozenset(plan_params(plan))
         bound = dict(params or {})
         check_params(param_names, bound, context=f"query '{name}'")
@@ -333,12 +565,12 @@ class PredictionQueryServer:
         if fact_table not in database:
             raise KeyError(f"fact table '{fact_table}' missing from database")
         scan_columns = [c for s in scans if s.table == fact_table for c in s.columns]
-        reg = RegisteredQuery(
+        return RegisteredQuery(
             name=name,
             # plan fingerprints are invariant under :param values
             # (rebinding must not recompile), so the handle guard is a
-            # serial token per registration
-            token=f"route#{next(self._reg_serial)}",
+            # serial token per route, which survives version cutovers
+            token=token,
             query_fingerprint=qfp,
             plan=plan,
             report=report,
@@ -346,8 +578,10 @@ class PredictionQueryServer:
             database=db,
             fact_table=fact_table,
             scan_columns=scan_columns,
-            # the full registered fact schema: submit normalizes every
-            # provided fact column against it
+            # the *full* registered fact schema, not just this plan's scan
+            # columns: submit normalizes every provided fact column against
+            # it, so a staged version whose optimizer pruned a different
+            # subset can serve the same queue
             fact_dtypes={
                 c: canonical_dtype(_dtype_of(v))
                 for c, v in database[fact_table].items()
@@ -355,48 +589,262 @@ class PredictionQueryServer:
             has_aggregate=compiled.graph.has_aggregate,
             param_names=param_names,
             params={k: float(v) for k, v in bound.items()},
+            version_label=version_label,
             donate=donate,
         )
-        with self._lock:
-            self.queries[name] = reg
-        self.scheduler.configure(
-            name, max_latency_ms=max_latency_ms, max_pending=max_pending,
-            max_coalesce=max_coalesce, retry=retry,
-        )
-        with self._lock:
-            self.stats.queries_registered += 1
-        return reg
 
     def rebind(self, name: str, params: dict[str, Any]) -> RegisteredQuery:
         """Re-bind ``:param`` values for a registered query: the plan, its
         graphs and the shape buckets are untouched — the new values flow
-        into the next execution as runtime inputs (nothing captured)."""
+        into the next execution as runtime inputs (nothing captured).
+        Applied to *every* version on the route: a staged or shadow version
+        must score the same binding the live one answers with."""
         reg = self._registered(name)
         check_params(
             reg.param_names, params, require_all=False, context=f"query '{name}'"
         )
-        reg.params.update({k: float(v) for k, v in params.items()})
+        vals = {k: float(v) for k, v in params.items()}
+        with self._lock:
+            route = self.routes.get(name)
+            regs = list(route.versions.values()) if route is not None else [reg]
+        for r in regs:
+            r.params.update(vals)
         return reg
 
-    # -- the model-version lifecycle: not ported ------------------------------
+    # -- model-version lifecycle ---------------------------------------------
 
-    def stage_version(self, *args, **kwargs):
-        raise NotImplementedError(LIFECYCLE_NOT_PORTED)
+    def _route(self, name: str) -> QueryRoute:
+        route = self.routes.get(name)
+        if route is None:
+            raise UnknownQueryError(
+                f"no query registered under '{name}' — registered: "
+                f"{sorted(self.routes) or '(none)'}"
+            )
+        return route
 
-    def warm_version(self, *args, **kwargs):
-        raise NotImplementedError(LIFECYCLE_NOT_PORTED)
+    def _version(self, route: QueryRoute, label: str) -> RegisteredQuery:
+        reg = route.versions.get(label)
+        if reg is None:
+            raise UnknownModelVersionError(
+                f"route '{route.name}' has no staged version {label!r} — "
+                f"staged: {sorted(route.versions)}"
+            )
+        return reg
 
-    def set_shadow(self, *args, **kwargs):
-        raise NotImplementedError(LIFECYCLE_NOT_PORTED)
+    @staticmethod
+    def _refresh_required(route: QueryRoute) -> None:
+        """Recompute the submit-time required column set (caller holds the
+        server lock): the union over every version currently routable —
+        live, shadow, and split targets."""
+        labels = {route.live, *route.split}
+        if route.shadow is not None:
+            labels.add(route.shadow)
+        route.required = {
+            c for lb in labels for c in route.versions[lb].scan_columns
+        }
 
-    def set_split(self, *args, **kwargs):
-        raise NotImplementedError(LIFECYCLE_NOT_PORTED)
+    def stage_version(
+        self,
+        name: str,
+        query: PredictionQuery,
+        database: dict,
+        *,
+        version_label: str,
+        optimized: Optional[tuple[PhysicalPlan, OptimizationReport]] = None,
+        params: Optional[dict[str, Any]] = None,
+    ) -> RegisteredQuery:
+        """Compile an incoming version for ``name`` without touching routing.
 
-    def cutover(self, *args, **kwargs):
-        raise NotImplementedError(LIFECYCLE_NOT_PORTED)
+        The staged registration shares the route's token and fact table;
+        its scan columns may differ from the live version's (a retrained
+        model reads different features) but must stay inside the fact
+        schema the route was registered over, with identical canonical
+        dtypes — submitted batches are validated and normalized against
+        that schema, so every routable version can serve the same queue.
+        When an artifact store is active the compiled stages warm-start
+        from it here; live bucket coverage comes from :meth:`warm_version`.
+        """
+        route = self._route(name)
+        live = self._version(route, route.live)
+        reg = self._build_registration(
+            name, query, database, live.fact_table,
+            optimized=optimized,
+            params=params if params is not None else dict(live.params),
+            token=route.token, version_label=version_label,
+            donate=live.donate,
+        )
+        outside = sorted(set(reg.scan_columns) - set(live.fact_dtypes))
+        if outside:
+            raise RegistryStateError(
+                f"version {version_label!r} of '{name}' reads columns "
+                f"{outside} outside the fact schema the route was "
+                f"registered over — re-serve the query instead"
+            )
+        drift = {
+            c: (str(reg.fact_dtypes[c]), str(live.fact_dtypes[c]))
+            for c in reg.scan_columns
+            if reg.fact_dtypes[c] != live.fact_dtypes[c]
+        }
+        if drift:
+            raise RegistryStateError(
+                f"version {version_label!r} of '{name}' disagrees with the "
+                f"route's registered submit dtypes: {drift}"
+            )
+        with self._lock:
+            reg.breaker_threshold = live.breaker_threshold
+            route.versions[version_label] = reg
+            route.version_stats(version_label)  # materialize the counter row
+        return reg
 
-    def retire_version(self, *args, **kwargs):
-        raise NotImplementedError(LIFECYCLE_NOT_PORTED)
+    def warm_version(self, name: str, version_label: str) -> int:
+        """Replay the route's observed bucket ladder through a staged
+        version so every (row bucket, segment-slot) graph it will serve is
+        captured *now*, off the request path — the zero-capture guarantee an
+        atomic cutover depends on. Returns the number of ladder entries
+        replayed; marks the version warm.
+
+        Replay goes through the exact ``_padded_kwargs`` path real traffic
+        takes (zero-filled rows, all-invalid mask), so the graphs it
+        captures are the ones post-cutover traffic replays. Where the
+        capture cache dropped a graph of this version since its last warm,
+        the whole ladder is replayed: a held graph only replays, a dropped
+        one is captured again.
+        """
+        route = self._route(name)
+        reg = self._version(route, version_label)
+        with self._lock:
+            ladder = set(route.ladder) or {(self.min_bucket, 0)}
+            pending = sorted(ladder if reg.graph_deficit() else ladder - reg.warmed_ladder)
+        replayed = 0
+        for bucket, seg_slots in pending:
+            fact = {
+                c: np.zeros(bucket, dtype=reg.fact_dtypes[c])
+                for c in reg.scan_columns
+            }
+            segments = None
+            if seg_slots:
+                segments = (np.zeros(bucket, dtype=np.int32), seg_slots)
+            self._execute_padded(reg, fact, bucket, segments=segments)
+            replayed += 1
+        with self._lock:
+            reg.warmed = True
+            reg.warm_evictions = reg.compiled.graph_state()[1]
+            self.stats.warm_replayed_buckets += replayed
+        return replayed
+
+    def set_shadow(self, name: str, version_label: Optional[str]) -> None:
+        """Mirror every coalesced group for ``name`` through a staged
+        version (None disables). The shadow scores its own padded copy of
+        the batch on a boundary-pool thread, its results are diffed against
+        the primary's and counted in the route's per-version stats — and
+        are never attached to any request."""
+        route = self._route(name)
+        if version_label is not None:
+            self._version(route, version_label)
+        with self._lock:
+            route.shadow = version_label
+            self._refresh_required(route)
+
+    def set_split(self, name: str, split: dict[str, float]) -> None:
+        """Route a fraction of dispatched groups to staged versions.
+
+        ``split`` maps version labels to fractions in [0, 1); the live
+        version serves the remainder. Selection is smooth weighted
+        round-robin — deterministic, no RNG — so a 0.25 split sends exactly
+        one group in four to the staged version. Pass ``{}`` to clear."""
+        route = self._route(name)
+        total = 0.0
+        for label, frac in split.items():
+            self._version(route, label)
+            if not 0.0 <= frac < 1.0:
+                raise RegistryStateError(
+                    f"split fraction for {label!r} must be in [0, 1), "
+                    f"got {frac}"
+                )
+            if label == route.live:
+                raise RegistryStateError(
+                    f"{label!r} is the live version — it already serves the "
+                    f"unsplit remainder"
+                )
+            total += frac
+        if total >= 1.0:
+            raise RegistryStateError(
+                f"split fractions sum to {total} — the live version must "
+                f"keep a nonzero remainder"
+            )
+        with self._lock:
+            route.split = dict(split)
+            route._wrr.clear()
+            self._refresh_required(route)
+
+    def cutover(
+        self, name: str, version_label: str, *, require_warm: bool = True
+    ) -> RegisteredQuery:
+        """Atomically make a staged version the live one.
+
+        The swap happens under the scheduler's hold: no group can be popped
+        while routing changes, groups already dispatched hold their
+        version's registration and complete on it (zero dropped requests),
+        and every group popped afterwards runs the incoming version. With
+        ``require_warm`` (default) the incoming version must have replayed
+        the route's full bucket ladder (:meth:`warm_version`) and kept every
+        graph it captured, so the swap also captures nothing;
+        ``require_warm=False`` forces the swap and records the warm deficit
+        on the route. The route token is untouched — outstanding submit
+        handles keep working across the swap.
+        """
+        route = self._route(name)
+        incoming = self._version(route, version_label)
+        with self.scheduler.hold():
+            with self._lock:
+                deficit = route.warm_deficit(incoming)
+                if require_warm and (deficit or not incoming.warmed):
+                    raise RegistryStateError(
+                        f"version {version_label!r} of '{name}' is not warm "
+                        f"({deficit} of {len(route.ladder)} bucket(s) cold) "
+                        f"— call warm_version() first, or force with "
+                        f"require_warm=False"
+                    )
+                route.last_cutover_deficit = deficit
+                route.live = version_label
+                route.split.pop(version_label, None)
+                route._wrr.clear()
+                if route.shadow == version_label:
+                    route.shadow = None
+                route.cutovers += 1
+                self._refresh_required(route)
+                self.queries[name] = incoming
+                self.stats.cutovers += 1
+        return incoming
+
+    def retire_version(self, name: str, version_label: str) -> None:
+        """Drop a non-live staged version from the route (its compiled plan
+        stays in the engine cache until evicted). Refuses to retire the
+        live version or one still designated shadow / holding split
+        traffic."""
+        route = self._route(name)
+        self._version(route, version_label)
+        with self._lock:
+            if version_label == route.live:
+                raise RegistryStateError(
+                    f"cannot retire live version {version_label!r} of "
+                    f"'{name}' — cut over to another version first"
+                )
+            if route.shadow == version_label or version_label in route.split:
+                raise RegistryStateError(
+                    f"version {version_label!r} of '{name}' still receives "
+                    f"shadow/split traffic — clear that first"
+                )
+            del route.versions[version_label]
+            self._refresh_required(route)
+
+    def route_snapshot(self, name: str) -> dict[str, Any]:
+        """One route's versioned state (live/shadow/split, ladder,
+        per-version counters and graphs) — the operator-facing stats
+        surface."""
+        route = self._route(name)
+        with self._lock:
+            return route.snapshot()
 
     def _registered(self, name: str) -> RegisteredQuery:
         reg = self.queries.get(name)
@@ -466,11 +914,19 @@ class PredictionQueryServer:
                 f"{expect_token}) — re-serve the prepared query to refresh "
                 f"the handle"
             )
-        missing = [c for c in reg.scan_columns if c not in columns]
+        with self._lock:
+            route = self.routes.get(name)
+            required = (
+                set(route.required) if route is not None else set(reg.scan_columns)
+            )
+        missing = [c for c in sorted(required) if c not in columns]
         if missing:
-            raise KeyError(f"batch for '{name}' missing columns {sorted(missing)}")
+            raise KeyError(f"batch for '{name}' missing columns {missing}")
         # normalize dtypes to the registered fact schema so every
-        # bucket-sized batch maps onto the same captured graph
+        # bucket-sized batch maps onto the same captured graph. Keep every
+        # schema column the caller provided (not just the live version's
+        # scan set): shadow and split versions of the same route may read
+        # columns the live plan pruned away
         cols = {
             c: np.asarray(v).astype(reg.fact_dtypes[c], copy=False)
             for c, v in columns.items()
@@ -518,11 +974,16 @@ class PredictionQueryServer:
         delivers a typed :class:`~repro_torch.errors.RequestFailedError` to
         every waiter via the ``fail`` callback."""
         done: Future = Future()
+        reg: Optional[RegisteredQuery] = None
         try:
             # "dispatch" fault site: the whole group dispatch raises before
             # any stage runs — the canonical transient-retry drill
             maybe_inject("dispatch", token=name)
             reg = self._registered(name)
+            route = self.routes.get(name)
+            shadow_reg = None
+            if route is not None:
+                reg, shadow_reg = self._pick_version(route)
             if asserts_enabled():
                 runtime_assert(len(group) > 0, "dispatched an empty group")
                 runtime_assert(
@@ -538,9 +999,28 @@ class PredictionQueryServer:
             with self._lock:
                 self.stats.flushes += 1
                 self.stats.requests_served += len(group)
+                if route is not None:
+                    st = route.version_stats(reg.version_label)
+                    st.groups += 1
+                    st.requests += len(group)
+                    st.rows += sum(r.n_rows for r in group)
+            for r in group:
+                r.served_by = reg.version_label
+
+            def _mirror() -> None:
+                # score the same group on the shadow version, off the
+                # dispatch path; diffing waits on `done`, so the mirror can
+                # never race (or touch) the primary's request results
+                if shadow_reg is not None:
+                    self.executor.pool.submit(
+                        self._mirror_shadow, route, shadow_reg, group, done
+                    )
+
             if not self.pipelined:
                 self._run_group(reg, group)
+                self._record_success(reg)
                 done.set_result(group)
+                _mirror()
                 return done
             n = sum(r.n_rows for r in group)
             if reg.sliceable and n > self.max_bucket:
@@ -549,12 +1029,13 @@ class PredictionQueryServer:
                 # pump stays responsive
                 f = self.executor.pool.submit(self._run_group, reg, group)
 
-                def _chunked_done(f2, _group=group, _done=done):
+                def _chunked_done(f2, _reg=reg, _group=group, _done=done):
                     e = f2.exception()
                     if e is not None:
-                        self._settle_dispatch_failure(_group, e)
+                        self._settle_dispatch_failure(_reg, _group, e)
                         _done.set_exception(e)
                     else:
+                        self._record_success(_reg)
                         _done.set_result(_group)
 
                 f.add_done_callback(_chunked_done)
@@ -568,25 +1049,201 @@ class PredictionQueryServer:
                 try:
                     res = f2.result()
                     self._split_group(_reg, _group, res, _n)
+                    self._record_success(_reg)
                     _done.set_result(_group)
                 except BaseException as e:  # noqa: BLE001
-                    self._settle_dispatch_failure(_group, e)
+                    self._settle_dispatch_failure(_reg, _group, e)
                     _done.set_exception(e)
 
             gfut.add_done_callback(_complete)
+            _mirror()
         except BaseException as e:  # noqa: BLE001
-            self._settle_dispatch_failure(group, e)
+            self._settle_dispatch_failure(reg, group, e)
             if not done.done():
                 done.set_exception(e)
         return done
 
-    def _settle_dispatch_failure(self, group: list[QueryRequest], e: BaseException) -> None:
+    def _settle_dispatch_failure(
+        self,
+        reg: Optional[RegisteredQuery],
+        group: list[QueryRequest],
+        e: BaseException,
+    ) -> None:
         """Route one group-execution failure: deterministic errors are
         attached to the requests immediately; transient ones are left for
         the scheduler (which requeues the group or fails it terminally
-        through the ``fail`` callback)."""
+        through the ``fail`` callback). Either way the failure counts toward
+        the serving version's error rate and, unless a kernel failed to
+        build or launch (:class:`~repro_torch.kernels._build.KernelError`),
+        its circuit breaker: a broken kernel fails its requests loudly and
+        is never replaced by the plain composition."""
         if not isinstance(e, TransientError):
             self._fail_group(group, e)
+        if reg is not None:
+            self._record_failure(reg, breaker=not isinstance(e, KernelError))
+
+    def _record_failure(self, reg: RegisteredQuery, breaker: bool = True) -> None:
+        trip = False
+        with self._lock:
+            route = self.routes.get(reg.name)
+            if route is not None:
+                route.version_stats(reg.version_label).errors += 1
+            if not breaker:
+                return
+            reg.breaker_failures += 1
+            if (
+                not reg.degraded
+                and reg.fallback is None
+                and reg.breaker_failures >= reg.breaker_threshold
+            ):
+                # claim the trip under the lock; compile outside it
+                reg.degraded = True
+                trip = True
+        if trip:
+            self._degrade(reg)
+
+    def _record_success(self, reg: RegisteredQuery) -> None:
+        with self._lock:
+            reg.breaker_failures = 0
+
+    def _degrade(self, reg: RegisteredQuery) -> None:
+        """Trip the circuit breaker: compile this registration's plan with
+        the relational kernels off (``compile_plan(kernels=False)``, a mode
+        of this compile alone: no other compile in the process sees it) and
+        route its traffic through the result. The mode token forks the
+        fallback's plan and stage fingerprints from the primary's. Join and
+        Aggregate then run the torch composition in place of
+        ``gather_join`` and ``segment_agg``; its sums run in another order
+        than ``segment_agg``'s fixed block order, so on the card the
+        fallback equals the primary bitwise on dyadic data and within
+        float32 rounding elsewhere (``featurize`` and ``tree_gemm`` have no
+        such mode). Plans with no Join/Aggregate fork to the same
+        fingerprint and the "fallback" is the primary again. A kernel's own
+        build or launch failure never reaches here
+        (:meth:`_settle_dispatch_failure`)."""
+        try:
+            fb = compile_plan(reg.plan, kernels=False)
+            if get_artifact_store() is not None:
+                fb.warm_start(database=reg.database)
+        except BaseException:  # noqa: BLE001
+            # fallback compile failed too: release the claim so the next
+            # failure can re-trip; traffic keeps flowing on the primary
+            with self._lock:
+                reg.degraded = False
+            return
+        with self._lock:
+            reg.fallback = fb
+            reg.breaker_trips += 1
+            self.stats.breaker_trips += 1
+
+    def _pick_version(
+        self, route: QueryRoute
+    ) -> tuple[RegisteredQuery, Optional[RegisteredQuery]]:
+        """Choose the version serving this group, plus the shadow (if set).
+
+        Split traffic uses smooth weighted round-robin — every label's
+        credit grows by its weight each pick, the largest credit wins and
+        pays back the total — so the selection is deterministic (no RNG) and
+        a 0.25 split sends exactly every fourth group to the staged version,
+        interleaved rather than bursty.
+        """
+        with self._lock:
+            shadow_reg = (
+                route.versions.get(route.shadow) if route.shadow else None
+            )
+            if not route.split:
+                return route.versions[route.live], shadow_reg
+            weights = dict(route.split)
+            weights[route.live] = 1.0 - sum(weights.values())
+            for label, w in weights.items():
+                route._wrr[label] = route._wrr.get(label, 0.0) + w
+            pick = max(
+                route._wrr,
+                key=lambda lb: (route._wrr[lb], lb == route.live, lb),
+            )
+            route._wrr[pick] -= sum(weights.values())
+            return route.versions[pick], shadow_reg
+
+    def _mirror_shadow(
+        self,
+        route: QueryRoute,
+        shadow_reg: RegisteredQuery,
+        group: list[QueryRequest],
+        primary_done: Future,
+    ) -> None:
+        """Score a mirrored copy of one coalesced group on the shadow
+        version (boundary-pool thread) and diff it against what the primary
+        actually returned. It builds its own padded batch from the
+        requests' host columns, uploaded and replayed on this thread's
+        stream, so it never reads the dispatcher's padded buffers; it never
+        touches request state: a shadow failure is counted on the route,
+        not raised, and shadow results are unreachable from any response."""
+        label = shadow_reg.version_label
+        try:
+            n = sum(r.n_rows for r in group)
+            if len(group) == 1:
+                cat = dict(group[0].columns)
+            else:
+                cat = {
+                    c: np.concatenate([r.columns[c] for r in group])
+                    for c in shadow_reg.scan_columns
+                }
+            segments = None
+            if len(group) > 1 and not shadow_reg.sliceable:
+                seg_ids = np.repeat(
+                    np.arange(len(group), dtype=np.int32),
+                    [r.n_rows for r in group],
+                )
+                segments = (seg_ids, len(group))
+            res = self._execute_padded(shadow_reg, cat, n, segments=segments)
+            shadow_out = self._split_results(shadow_reg, group, res, n)
+            primary_done.result(timeout=60.0)
+            diff_rows, max_diff, rows = self._diff_shadow(group, shadow_out)
+            with self._lock:
+                st = route.version_stats(label)
+                st.shadow_groups += 1
+                st.shadow_rows += rows
+                st.shadow_diff_rows += diff_rows
+                st.shadow_max_abs_diff = max(st.shadow_max_abs_diff, max_diff)
+                self.stats.shadow_mirrored_groups += 1
+        except BaseException:  # noqa: BLE001 — contained, counted, never raised
+            with self._lock:
+                route.version_stats(label).shadow_errors += 1
+
+    @staticmethod
+    def _diff_shadow(
+        group: list[QueryRequest],
+        shadow_out: list[dict[str, np.ndarray]],
+    ) -> tuple[int, float, int]:
+        """Compare shadow per-request results against the primary's returned
+        ones: (rows not bitwise-equal, largest numeric divergence, rows
+        compared). A column-set or row-count mismatch counts every primary
+        row as differing — a shape drift is the loudest possible diff."""
+        diff_rows, max_diff, rows = 0, 0.0, 0
+        for req, sh in zip(group, shadow_out):
+            pr = req.result or {}
+            n_pr = len(next(iter(pr.values()))) if pr else 0
+            rows += n_pr
+            n_sh = len(next(iter(sh.values()))) if sh else 0
+            if sorted(pr) != sorted(sh) or n_pr != n_sh:
+                diff_rows += n_pr
+                continue
+            row_diff = np.zeros(n_pr, dtype=bool)
+            for k, pv in pr.items():
+                sv = np.asarray(sh[k])
+                pv = np.asarray(pv)
+                neq = pv != sv
+                if pv.dtype.kind == "f":
+                    neq &= ~(np.isnan(pv) & np.isnan(sv))
+                    d = np.abs(
+                        np.nan_to_num(pv.astype(np.float64))
+                        - np.nan_to_num(sv.astype(np.float64))
+                    )
+                    if d.size:
+                        max_diff = max(max_diff, float(d.max()))
+                row_diff |= neq.reshape(n_pr, -1).any(axis=1)
+            diff_rows += int(row_diff.sum())
+        return diff_rows, max_diff, rows
 
     def _fail_group(self, group: list[QueryRequest], e: BaseException) -> None:
         """Contain the blast radius: fail this group's requests (waiters
@@ -647,8 +1304,16 @@ class PredictionQueryServer:
             if len(ids) < bucket:
                 ids = np.concatenate([ids, np.zeros(bucket - len(ids), dtype=np.int32)])
             segments = (ids, k)
+        # key on the *active* plan: a breaker-degraded registration serves
+        # (and warms buckets for) its fallback's fingerprint
+        active_fp = reg.active.fingerprint
         schema = tuple((c, str(reg.fact_dtypes[c])) for c in reg.scan_columns)
-        key = (reg.compiled.fingerprint, schema, bucket)
+        key = (active_fp, schema, bucket)
+        # (row bucket, segment-slot bucket) is exactly the specialization
+        # key (the segment *count* is a runtime scalar): recording it on the
+        # route is what lets warm_version replay an incoming version into
+        # full coverage before a cutover
+        entry = (bucket, seg_bucket(segments[1]) if segments is not None else 0)
         with self._lock:
             if key in self._seen_buckets:
                 self.stats.bucket_hits += 1
@@ -657,9 +1322,13 @@ class PredictionQueryServer:
                 self._seen_buckets.add(key)
             self.stats.batches_executed += 1
             self.stats.rows_padded += bucket - n
+            reg.warmed_ladder.add(entry)
+            route = self.routes.get(reg.name)
+            if route is not None:
+                route.ladder.add(entry)
 
         def track_mid(stage_index: int, b: int) -> None:
-            mid_key = (reg.compiled.fingerprint, stage_index, b)
+            mid_key = (active_fp, stage_index, b)
             with self._lock:
                 if mid_key in self._seen_mid_buckets:
                     self.stats.mid_bucket_hits += 1
@@ -685,11 +1354,11 @@ class PredictionQueryServer:
 
     def _execute_padded(self, reg, fact_np, n, segments=None):
         """Serial padded execution (blocks at every stage)."""
-        return reg.compiled.run(**self._padded_kwargs(reg, fact_np, n, segments))
+        return reg.active.run(**self._padded_kwargs(reg, fact_np, n, segments))
 
     def _execute_padded_async(self, reg, fact_np, n, segments=None) -> Future:
         """Pipelined padded execution; returns ``Future[RunResult]``."""
-        return reg.compiled.run_async(
+        return reg.active.run_async(
             executor=self.executor, **self._padded_kwargs(reg, fact_np, n, segments),
         )
 
@@ -703,6 +1372,13 @@ class PredictionQueryServer:
             )
         req.done = True
         req.t_done = time.perf_counter()
+        if req.served_by:
+            with self._lock:
+                route = self.routes.get(req.query)
+                if route is not None:
+                    route.record_latency(
+                        req.served_by, (req.t_done - req.t_submit) * 1e3
+                    )
         req._event.set()
 
     @staticmethod
@@ -776,23 +1452,34 @@ class PredictionQueryServer:
     # -- introspection --------------------------------------------------------
 
     def recompiles(self) -> int:
-        """Stage specializations across every registered query: captures of
-        CUDA graphs on the card (new input structures on the CPU). A warm
-        bucket adds none."""
+        """Stage specializations across every registered version (staged
+        and shadow versions included — a warm cutover must not move this):
+        captures of CUDA graphs on the card (new input structures on the
+        CPU). A warm bucket adds none."""
         with self._lock:
-            regs = list(self.queries.values())
-        return sum(r.recompiles for r in regs)
+            regs = {
+                id(r): r
+                for route in self.routes.values()
+                for r in route.versions.values()
+            }
+            for r in self.queries.values():
+                regs.setdefault(id(r), r)
+        return sum(r.recompiles for r in regs.values())
 
     def stats_snapshot(self) -> dict[str, Any]:
-        """Server counters merged with the scheduler's queue gauges and the
-        pipelined executor's overlap gauges (what ``db.cache_stats()``
-        surfaces under ``"server"``)."""
+        """Server counters merged with the scheduler's queue gauges, the
+        pipelined executor's overlap gauges, and per-route version state
+        (what ``db.cache_stats()`` surfaces under ``"server"``)."""
         out = self.stats.snapshot()
         out.update(self.scheduler.snapshot())
         out["queue_depths"] = self.scheduler.depths()
         out["pipeline"] = self.executor.snapshot()
         plan = get_fault_plan()
         out["faults_injected"] = plan.injected() if plan is not None else {}
+        with self._lock:
+            out["routes"] = {
+                name: route.snapshot() for name, route in self.routes.items()
+            }
         return out
 
 

@@ -25,6 +25,8 @@ IR, the optimizer and the engine, on the port's device::
     prep.serve()                 # bucketed, micro-batched, captured serving
     req = prep.submit(batch)     # ...then db.flush(), or a pump
     db.cache_stats()             # plan-cache, capture and server accounting
+    db.models.publish("risk", pipe2)   # v2 staged and warmed on served routes
+    db.models.cutover("risk", 2)       # atomic swap; shadow/split/rollback too
 
 ``:param`` placeholders lower to canonical ``Param`` slots that hash by name,
 so a prepared plan re-binds thresholds without re-optimizing, re-compiling,
@@ -34,10 +36,11 @@ once, at :func:`connect`; a call uploads only the ``batch`` it is given.
 A runtime-selection ``strategy`` (:mod:`repro_torch.core.strategies`)
 picks each predict node's runtime from its pipeline's statistics where no
 ``transform`` is forced; ``verify`` (or ``RAVEN_VERIFY``) checks every plan
-statically (:mod:`repro_torch.analysis.verifier`). What needs a cache
-directory or the model lifecycle raises ``NotImplementedError`` naming
-ROADMAP item 7: ``cache_dir``/``cache_max_bytes``/``recover``/``faults``
-and a circuit breaker.
+statically (:mod:`repro_torch.analysis.verifier`). ``cache_dir`` installs
+an :class:`~repro_torch.exec.artifact_store.ArtifactStore` (warm starts
+across processes, the registry's journal and ``db.recover()``), and
+``ConnectOptions(faults=..., rollback=...)`` a fault plan and the policy
+the registry's rollback checks enforce.
 """
 from __future__ import annotations
 
@@ -55,13 +58,16 @@ from repro_torch.core.optimizer import (
     format_physical_plan,
 )
 from repro_torch.device import resolve_device
-from repro_torch.errors import RavenError, UnknownTableError, check_params
+from repro_torch.errors import RavenError, RecoveryError, UnknownTableError, check_params
+from repro_torch.exec.faults import get_fault_plan, set_fault_plan
 from repro_torch.options import ConnectOptions, ServeOptions
 from repro_torch.relational.engine import (
     PLAN_CACHE_STATS,
     PhysicalPlan,
     Scan,
     compile_plan,
+    get_artifact_store,
+    set_artifact_store,
     upload_database,
     walk_plan,
 )
@@ -75,10 +81,6 @@ from repro_torch.sql.parser import (
     parse_condition,
     parse_select_items,
     parse_spec,
-)
-
-PERSISTENCE_NOT_PORTED = (
-    "is not ported yet: ROADMAP.md Queue 1 item 7, persistence and lifecycle"
 )
 
 
@@ -110,9 +112,24 @@ def connect(
     plan-verification mode: ``"off"``, ``"warn"`` or ``"strict"`` (``True``
     is strict), or None for ``RAVEN_VERIFY`` (default off). ``device`` is
     where the tables live and queries run: the card unless the caller
-    passes ``device="cpu"``. ``cache_dir`` and ``cache_max_bytes``, and the
-    bundle's ``faults`` and ``rollback``, raise ``NotImplementedError``
-    naming ROADMAP item 7.
+    passes ``device="cpu"``.
+
+    ``cache_dir`` enables **warm starts across processes**: an
+    :class:`~repro_torch.exec.artifact_store.ArtifactStore` rooted there
+    persists optimizer output per query fingerprint (``prepare()`` skips
+    re-optimization when the query, statistics and model weights match) and
+    the structure of every bucket each pure stage served (``serve()``
+    captures the graphs of all buckets found on disk at registration, so a
+    fresh process serves them with no capture on the request path).
+    Entries are keyed on content fingerprints and checked against a header
+    (store, torch and CUDA versions, the device's capability, the kernels'
+    sources), so a stale or corrupted cache falls back to live work, never
+    to wrong results. The store is installed process-wide; the most recent
+    ``connect`` wins. ``cache_max_bytes`` bounds the directory by size. The
+    bundle's ``faults`` installs a :class:`~repro_torch.exec.faults.FaultPlan`
+    process-wide for the session's lifetime, and ``rollback`` is the
+    :class:`~repro_torch.exec.faults.RollbackPolicy` that
+    ``db.models.check_rollback`` and its guards enforce.
     """
     return Session(
         tables, stats, partition_cols=partition_cols, strategy=strategy,
@@ -121,17 +138,9 @@ def connect(
     )
 
 
-def _refuse_unported(copts: ConnectOptions) -> None:
-    """Raise for every session knob the port does not have yet: none is
-    silently ignored."""
-    if copts.cache_dir is not None or copts.cache_max_bytes is not None:
-        raise NotImplementedError(f"the artifact store (cache_dir) {PERSISTENCE_NOT_PORTED}")
-    if copts.faults is not None or copts.rollback is not None:
-        raise NotImplementedError(f"fault injection and rollback {PERSISTENCE_NOT_PORTED}")
-
-
 class Session:
-    """Owns the database (on its device), statistics and model registry."""
+    """Owns the database (on its device), statistics, model registry,
+    serving layer and artifact store."""
 
     def __init__(
         self,
@@ -146,13 +155,10 @@ class Session:
         verify: Union[str, bool, None] = None,
         device=None,
     ):
-        if cache_dir is not None or cache_max_bytes is not None:
-            raise NotImplementedError(f"the artifact store (cache_dir) {PERSISTENCE_NOT_PORTED}")
         copts = ConnectOptions.resolve(
             options, partition_cols=partition_cols, strategy=strategy,
-            verify=verify,
+            cache_dir=cache_dir, cache_max_bytes=cache_max_bytes, verify=verify,
         )
-        _refuse_unported(copts)
         self.connect_options = copts
         opt_options = copts.optimizer
         if copts.verify is not None:
@@ -183,9 +189,26 @@ class Session:
             raise RavenError(
                 f"stats must be 'auto', a dict, or None — got {stats!r}"
             )
-        self.models = ModelRegistry()
+        self.models = ModelRegistry(self)
         # the tables on the session's device, once: every call runs on these
         self.database = upload_database(self.tables, self.device)
+        self.artifact_store = None
+        if copts.cache_dir is not None:
+            from repro_torch.exec.artifact_store import ArtifactStore
+
+            self.artifact_store = ArtifactStore(
+                copts.cache_dir, max_bytes=copts.cache_max_bytes, device=self.device
+            )
+        # the most recent connect wins — including a cache-less connect,
+        # which must *clear* a previous session's store rather than let it
+        # keep intercepting (and writing to) every later specialization
+        set_artifact_store(self.artifact_store)
+        # a session-supplied FaultPlan is installed process-wide for its
+        # lifetime (same most-recent-wins contract as the artifact store);
+        # without one, the RAVEN_FAULTS env plan (if any) stays in effect
+        self._fault_plan = copts.faults
+        if copts.faults is not None:
+            set_fault_plan(copts.faults)
         self._server: Optional[PredictionQueryServer] = None
         self._names = itertools.count()
 
@@ -231,10 +254,50 @@ class Session:
     def _next_name(self) -> str:
         return f"q{next(self._names)}"
 
-    # -- not ported yet ------------------------------------------------------
+    # -- crash recovery ------------------------------------------------------
 
     def recover(self) -> dict:
-        raise NotImplementedError(f"registry recovery {PERSISTENCE_NOT_PORTED}")
+        """Rebuild the model registry + serving topology from the journal.
+
+        A session opened with ``cache_dir`` journals every registry
+        lifecycle mutation (publish/shadow/split/cutover/retire/rollback and
+        route registrations) through the artifact store, keyed on the
+        session's table-schema fingerprint. After a crash, a fresh session
+        over the same tables and cache dir calls ``recover()`` to restore
+        published versions (with their recorded histories), live/shadow/
+        split pointers, the rollback log, and every served route — re-served
+        under its original name and options, its observed bucket ladder
+        restored and warm-replayed (the stored bucket structures captured at
+        registration), so the recovered server answers previously seen
+        shapes with no new capture on the request path. Returns
+        ``{"recovered": False}`` when no journal exists, else counts
+        (models/versions/routes restored, routes skipped)."""
+        if self.artifact_store is None:
+            raise RecoveryError(
+                "recover() needs an artifact store — connect with "
+                "ConnectOptions(cache_dir=...)"
+            )
+        state = self.artifact_store.load_registry(self._journal_key())
+        if state is None:
+            return {"recovered": False}
+        counts = self.models._restore(state)
+        counts["recovered"] = True
+        return counts
+
+    def _journal_key(self) -> str:
+        """The registry journal's store key: a fingerprint of the session's
+        table schemas (names, columns, dtypes — not row contents), so a
+        restarted server over the same database finds its journal while a
+        schema change quietly orphans the stale one."""
+        from repro_torch.core.fingerprint import fingerprint
+
+        return fingerprint(
+            "registry-journal",
+            tuple(
+                (t, tuple((c, str(v.dtype)) for c, v in sorted(cols.items())))
+                for t, cols in sorted(self.tables.items())
+            ),
+        )
 
     # -- accounting ----------------------------------------------------------
 
@@ -245,20 +308,36 @@ class Session:
         ``replays`` and ``capture_input_copies``, the ``graphs`` held and
         their ``graph_bytes``), the session server's counters under
         ``"server"`` (with the scheduler's queue gauges, the pipelined
-        executor's under ``"pipeline"`` and ``recompiles``), and the model
-        registry's under ``"models"``."""
+        executor's under ``"pipeline"``, ``recompiles``, ``breaker_trips``
+        and per-route version state under ``"routes"``), the artifact
+        store's :class:`~repro_torch.exec.artifact_store.StoreStats` under
+        ``"artifact_store"`` when the session has one (with ``disk_hits``/
+        ``disk_misses`` at the top level), and the model registry's under
+        ``"models"``."""
         out = PLAN_CACHE_STATS.snapshot()
         if self._server is not None:
             out["server"] = self._server.stats_snapshot()
             out["server"]["recompiles"] = self._server.recompiles()
+        if self.artifact_store is not None:
+            out["artifact_store"] = self.artifact_store.stats.snapshot()
         out["models"] = self.models.snapshot()
         return out
 
     def close(self) -> None:
-        """Stop the server's pump (it drains pending requests first) and
-        release its boundary pool."""
+        """Stop any running rollback guards and the server's pump (it
+        drains pending requests first), release its boundary pool, flush
+        the artifact store's background writer, and uninstall this
+        session's artifact store and fault plan (if still the active
+        ones)."""
+        self.models.close()  # stop rollback guards before the pump drains
         if self._server is not None:
             self._server.shutdown()
+        if self.artifact_store is not None:
+            self.artifact_store.close()  # flush writes + stop the writer
+            if get_artifact_store() is self.artifact_store:
+                set_artifact_store(None)
+        if self._fault_plan is not None and get_fault_plan() is self._fault_plan:
+            set_fault_plan(None)
 
     def __enter__(self) -> "Session":
         return self
@@ -327,7 +406,14 @@ class Query:
         prepare only — ``True`` (= ``"strict"``) raises
         :class:`~repro_torch.errors.PlanVerificationError` on any verifier
         violation, ``"warn"`` warns, ``"off"`` disables. The mode does not
-        change the produced plan, its fingerprint, or any cache key."""
+        change the produced plan, its fingerprint, or any cache key.
+
+        When the session has an artifact store (``connect(cache_dir=...)``),
+        the optimizer's output is persisted per query fingerprint — a fresh
+        process re-preparing the same query over the same statistics and
+        model weights loads the optimized plan from disk instead of
+        re-running the optimizer (plans holding a ``TensorOp`` program are
+        not persisted: they optimize again)."""
         opts = options or self._session.options or OptimizerOptions()
         if transform is not None:
             opts = dataclasses.replace(opts, transform=transform)
@@ -339,8 +425,39 @@ class Query:
         declared = self.param_names()
         bound = dict(params or {})
         check_params(declared, bound, context="query")
+        plan, report = self._optimize(opts, strat)
+        return PreparedQuery(self, plan, report, opts, strat, bound)
+
+    def _optimize(self, opts: OptimizerOptions, strat):
+        """Run the optimizer, through the disk tier when one is active."""
+        from repro_torch.core.fingerprint import fingerprint
+
+        store = self._session.artifact_store
+        key: Optional[str] = None
+        if store is not None:
+            # the optimizer is a pure function of (IR plan incl. model
+            # weights, stats, options, strategy); a key hashing any component
+            # by identity is not valid in another process, so skip the store.
+            # the verify mode only decides whether the plan is *checked*,
+            # never what plan comes out, so it must not fork cache entries
+            pins: list = []
+            key = fingerprint(
+                self.ir.plan, self.ir.stats,
+                dataclasses.replace(opts, verify=None), strat, pins=pins,
+            )
+            if pins:
+                store.stats.skipped += 1
+                key = None
+        if key is not None:
+            hit = store.load_plan(key)
+            if hit is not None:
+                PLAN_CACHE_STATS.disk_hits += 1
+                return hit
+            PLAN_CACHE_STATS.disk_misses += 1
         plan, report = RavenOptimizer(strategy=strat, options=opts).optimize(self.ir)
-        return PreparedQuery(self, plan, report, opts, bound)
+        if key is not None:
+            store.save_plan(key, plan, report)
+        return plan, report
 
 
 class QueryBuilder(Query):
@@ -404,12 +521,14 @@ class PreparedQuery:
         plan: PhysicalPlan,
         report: OptimizationReport,
         options: OptimizerOptions,
+        strategy,
         params: dict[str, Any],
     ):
         self.query = query
         self.plan = plan
         self.report = report
         self.options = options
+        self.strategy = strategy
         self.params = dict(params)
         self.compiled = compile_plan(plan)
         self._verify_compiled()
@@ -523,8 +642,13 @@ class PreparedQuery:
         :class:`~repro_torch.errors.ServerOverloadedError`), ``max_coalesce``
         caps the rows one dispatched group may coalesce. The server reads
         the session's tables where they lie on its device; each group
-        uploads only its padded batch. A ``breaker_threshold`` raises
-        (ROADMAP.md Queue 1 item 7).
+        uploads only its padded batch.
+
+        Serving also registers this query's route with the session's
+        :class:`~repro_torch.serve.registry.ModelRegistry`: later
+        ``db.models.publish()`` calls for the referenced model stage their
+        new version onto this route, and ``shadow``/``split``/``cutover``
+        act on it.
         """
         sopts = ServeOptions.resolve(
             options, max_latency_ms=max_latency_ms,
@@ -534,6 +658,13 @@ class PreparedQuery:
         session = self.query.session
         srv = server if server is not None else session.server
         self._serve_name = name or session._next_name()
+        model_ref = self.query.spec.model
+        version_label = "v1"
+        if model_ref is not None:
+            try:
+                version_label = session.models.resolve(model_ref).label
+            except RavenError:
+                pass  # model outside the registry (e.g. a bare test server)
         reg = srv.register(
             self._serve_name, self.query.ir, session.database,
             fact_table=self._fact_table(),
@@ -542,12 +673,15 @@ class PreparedQuery:
             max_latency_ms=sopts.max_latency_ms,
             max_pending=sopts.max_pending,
             max_coalesce=sopts.max_coalesce,
+            version_label=version_label,
             donate=sopts.donate,
             retry=sopts.retry,
             breaker_threshold=sopts.breaker_threshold,
         )
         self._serve_token = reg.token
         self._server = srv
+        if model_ref is not None:
+            session.models._track_route(model_ref, self._serve_name, self, srv)
         if sopts.max_latency_ms is not None:
             srv.start_pump(sopts.max_latency_ms)
         return self
@@ -600,7 +734,16 @@ class PreparedQuery:
             rec = session.models.snapshot().get(name)
             if rec is not None:
                 lines.append("-- model lifecycle " + "-" * 36)
-                lines.append(f"{name}: live=v{rec['live']}")
+                extra = ""
+                if rec["shadow"] is not None:
+                    extra += f", shadow=v{rec['shadow']}"
+                if rec["split"]:
+                    extra += f", split={rec['split']}"
+                lines.append(f"{name}: live=v{rec['live']}{extra}")
+                for r in rec["rollbacks"]:
+                    lines.append(
+                        f"* rolled back v{r['from']} -> v{r['to']}: {r['reason']}"
+                    )
         lines.append("-- logical plan (as written) " + "-" * 26)
         lines.append(format_logical_plan(self.query.ir.plan))
         lines.append("-- physical plan (optimized) " + "-" * 26)

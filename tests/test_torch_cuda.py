@@ -14,7 +14,13 @@ Capture and serving on the card: every plan of the main path captured
 ``segment_agg`` stage replays 50 times bitwise, the captured decode tick
 serves the eager tick's tokens, the served hospital query equals its
 one-shot call and a warm bucket captures nothing, and a lazy cache or a
-host read reached while capturing raises.
+host read reached while capturing raises. Persistence and lifecycle: a warm
+start from the artifact store captures its buckets at registration and none
+on the request path (bitwise the cold run), a warmed version's cutover
+captures nothing, a ladder past the capture cache's capacity shows as a
+warm deficit, a one-shot call on a stored but not preloaded bucket counts
+its capture, and a kernel's launch error fails its requests without
+tripping the breaker.
 """
 from __future__ import annotations
 
@@ -1269,3 +1275,231 @@ def test_strict_verification_on_the_card(dev, transform, split):
     with pytest.raises(PlanVerificationError) as ei:
         verifier.verify_graph(graph, db.database, mode="strict")
     assert "schema-chain" in {v.rule for v in ei.value.violations}
+
+
+# ---------------------------------------------------------------------------
+# Persistence and lifecycle on the card
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_SIZES = (100, 1000, 3000)  # three row buckets: 128, 1024, 4096
+
+
+def _lifecycle_session(dev, cache_dir=None):
+    import repro_torch as raven
+
+    pipe, infer, t = _hospital_on_both(False)
+    db = raven.connect(infer.tables, device=dev,
+                       options=raven.ConnectOptions(cache_dir=cache_dir))
+    db.models.publish("m", pipe)
+    prep = db.sql(HOSPITAL_AGG).prepare(transform="dnn", params={"t": t})
+    return db, prep.serve("q")
+
+
+def _ladder(db, prep) -> list:
+    from repro_torch.data.datasets import make_hospital
+
+    outs = []
+    for i, n in enumerate(LIFECYCLE_SIZES):
+        req = prep.submit(make_hospital(n, seed=30 + i).tables["patients"])
+        db.flush()
+        outs.append((req.served_by, req.wait(timeout=60.0)))
+    return outs
+
+
+def test_warm_start_captures_from_the_store_before_the_first_request(dev, tmp_path):
+    """A session serves three buckets with ``cache_dir``; with the plan
+    cache cleared (a fresh process's state) a second session's
+    registration captures each stored bucket's graph, its requests capture
+    nothing and count no trace, and its answers equal the first's bitwise."""
+    from repro_torch.exec import capture
+    from repro_torch.relational import engine
+
+    cache = str(tmp_path / "cache")
+    db, prep = _lifecycle_session(dev, cache)
+    cold = _ladder(db, prep)
+    db.close()  # drains the store's writer
+    engine.clear_plan_cache()
+
+    captures = capture.captures()
+    db, prep = _lifecycle_session(dev, cache)
+    stats = db.cache_stats()
+    assert stats["server"]["warm_started_buckets"] == len(LIFECYCLE_SIZES)
+    assert stats["disk_hits"] >= len(LIFECYCLE_SIZES)
+    assert capture.captures() - captures == len(LIFECYCLE_SIZES)  # at registration
+    assert stats["traces"] == 0 and stats["server"]["warm_start_s"] > 0
+    captures = capture.captures()
+    warm = _ladder(db, prep)
+    assert capture.captures() == captures, "a request captured a stored bucket"
+    assert db.cache_stats()["traces"] == 0
+    for (_, w), (_, c) in zip(warm, cold):
+        _assert_bitwise(w, c)
+    db.close()
+    engine.clear_plan_cache()
+
+
+def _v2(db):
+    """Publish ``m`` v2 (the same spec trained on another seed), warmed
+    onto the served route."""
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.ml import GradientBoostingClassifier, fit_pipeline
+
+    train = make_hospital(1024, seed=1)
+    pipe = fit_pipeline(
+        train.joined_columns(), train.label, train.numeric, train.categorical,
+        GradientBoostingClassifier(n_estimators=10, max_depth=3),
+        categories=train.categories(),
+    )
+    return db.models.publish("m", pipe, warm="sync")
+
+
+def test_cutover_of_a_warmed_version_captures_nothing(dev):
+    """Publish v2 warmed onto the route's ladder, cut over: the requests
+    after the swap run v2, capture no graph, and answer as v2's one-shot
+    call (COUNT equal, AVG within rtol 1e-5)."""
+    from repro_torch.exec import capture
+
+    db, prep = _lifecycle_session(dev)
+    _ladder(db, prep)
+    assert _v2(db).state == "ready"
+    captures, recompiles = capture.captures(), db.server.recompiles()
+    db.models.cutover("m", 2)
+    after = _ladder(db, prep)
+    assert capture.captures() == captures and db.server.recompiles() == recompiles
+    one_shot = db.sql(HOSPITAL_AGG.replace("'m'", "'m@2'")).prepare(
+        transform="dnn", params=prep.params)
+    from repro_torch.data.datasets import make_hospital
+
+    for i, (served_by, out) in enumerate(after):
+        assert served_by == "v2"
+        want = one_shot(make_hospital(LIFECYCLE_SIZES[i], seed=30 + i).tables["patients"])
+        assert np.array_equal(out["count_rows"], want["count_rows"])
+        np.testing.assert_allclose(out["mean_score"], want["mean_score"], rtol=1e-5)
+    assert db.server.route_snapshot("q")["last_cutover_deficit"] == 0
+    db.close()
+
+
+def test_a_ladder_past_the_capture_cache_shows_as_a_warm_deficit(dev, monkeypatch):
+    """Two warmed versions of a three-bucket ladder in a cache of three
+    graphs: warming v2 drops v1's graphs, which ``route_snapshot`` shows
+    (``graph_evictions``, ``warm_deficit``) and a cutover back to v1 refuses
+    until ``warm_version`` has captured them again."""
+    from repro_torch.errors import RegistryStateError
+    from repro_torch.exec import capture
+
+    db, prep = _lifecycle_session(dev)
+    capture.clear()
+    monkeypatch.setattr(capture, "GRAPH_CAPACITY", len(LIFECYCLE_SIZES))
+    _ladder(db, prep)
+    _v2(db)
+    snap = db.server.route_snapshot("q")["versions"]
+    assert snap["v1"]["graph_evictions"] == len(LIFECYCLE_SIZES)
+    assert snap["v1"]["graphs"] == 0 and snap["v1"]["warm_deficit"] == len(LIFECYCLE_SIZES)
+    assert snap["v2"]["graphs"] == len(LIFECYCLE_SIZES) and snap["v2"]["warm_deficit"] == 0
+    db.models.cutover("m", 2)  # v2 kept every graph it warmed
+    with pytest.raises(RegistryStateError, match="not warm"):
+        db.server.cutover("q", "v1", require_warm=True)
+    assert db.server.warm_version("q", "v1") == len(LIFECYCLE_SIZES)
+    db.server.cutover("q", "v1", require_warm=True)
+    snap = db.server.route_snapshot("q")["versions"]
+    assert snap["v1"]["warm_deficit"] == 0 and snap["v2"]["warm_deficit"] > 0
+    db.close()
+
+
+def test_a_one_shot_call_on_a_stored_bucket_counts_its_capture(dev, tmp_path):
+    """A one-shot call is never warm-started, so in a fresh process its
+    stored bucket is captured on the request path: the call counts that
+    capture as a trace and claims no disk hit, as the cold call did, and
+    answers as it bitwise."""
+    import repro_torch as raven
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.exec import capture
+    from repro_torch.relational import engine
+
+    pipe, infer, t = _hospital_on_both(False)
+    batch = make_hospital(1000, seed=30).tables["patients"]
+    cache = str(tmp_path / "cache")
+
+    def one_shot():
+        engine.clear_plan_cache()  # a fresh process's state
+        db = raven.connect(infer.tables, device=dev,
+                           options=raven.ConnectOptions(cache_dir=cache))
+        db.models.publish("m", pipe)
+        prep = db.sql(HOSPITAL_AGG).prepare(transform="dnn", params={"t": t})
+        before, captures = db.cache_stats(), capture.captures()
+        out = prep(batch)
+        after = db.cache_stats()
+        db.close()  # drains the store's writer
+        return out, {
+            "traces": after["traces"] - before["traces"],
+            "disk_hits": after["disk_hits"] - before["disk_hits"],
+            "captures": capture.captures() - captures,
+            "stage_hits": (after["artifact_store"]["stage_hits"]
+                           - before["artifact_store"]["stage_hits"]),
+        }
+
+    cold, cold_n = one_shot()
+    warm, warm_n = one_shot()
+    engine.clear_plan_cache()
+    assert cold_n["captures"] >= 1 and cold_n["stage_hits"] == 0
+    assert warm_n["stage_hits"] == cold_n["captures"]  # the store held each bucket
+    assert warm_n["captures"] == cold_n["captures"]
+    assert warm_n["traces"] == warm_n["captures"] and warm_n["disk_hits"] == 0
+    _assert_bitwise(warm, cold)
+
+
+class _FailingSegmentAgg:
+    """The kernel library with ``segment_agg``'s entry point reporting a
+    CUDA error (1, invalid argument) in place of launching."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        if name == "raven_segment_agg":
+            return lambda *args: 1
+        return getattr(self._real, name)
+
+
+def test_a_kernel_launch_error_never_trips_the_breaker(dev, monkeypatch):
+    """``segment_agg`` reporting a launch error raises ``KernelError`` from
+    the served group: its requests fail with it, the breaker (threshold 1)
+    stays closed and no kernel-free fallback is compiled; once the kernel
+    launches again the same route serves through it, as its one-shot call
+    answers (COUNT equal, AVG within rtol 1e-5)."""
+    import repro_torch as raven
+    from repro_torch.data.datasets import make_hospital
+    from repro_torch.exec import capture
+    from repro_torch.kernels import _build
+    from repro_torch.relational import engine
+
+    engine.clear_plan_cache()
+    capture.clear()
+    pipe, infer, t = _hospital_on_both(False)
+    db = raven.connect(infer.tables, device=dev)
+    db.models.publish("m", pipe)
+    prep = db.sql(HOSPITAL_AGG).prepare(transform="dnn", params={"t": t})
+    prep.serve("q", options=raven.ServeOptions(breaker_threshold=1))
+    batch = make_hospital(1000, seed=30).tables["patients"]
+    real = _build.lib()
+    with monkeypatch.context() as m:
+        m.setattr(_build, "lib", lambda: _FailingSegmentAgg(real))
+        for _ in range(2):
+            req = prep.submit(batch)
+            with pytest.raises(_build.KernelError, match="segment_agg"):
+                db.flush()
+            with pytest.raises(raven.RavenError) as ei:
+                req.wait(timeout=60.0)
+            assert isinstance(ei.value.__cause__, _build.KernelError)
+    snap = db.server.route_snapshot("q")["versions"]["v1"]
+    assert not snap["degraded"] and snap["breaker_trips"] == 0 and snap["errors"] == 2
+    assert db.server.queries["q"].fallback is None
+    launches = _build.LAUNCHES["segment_agg"]
+    req = prep.submit(batch)
+    db.flush()
+    out = req.wait(timeout=60.0)
+    assert _build.LAUNCHES["segment_agg"] > launches
+    want = prep(batch)
+    assert np.array_equal(out["count_rows"], want["count_rows"])
+    np.testing.assert_allclose(out["mean_score"], want["mean_score"], rtol=1e-5)
+    db.close()
+    engine.clear_plan_cache()

@@ -9,11 +9,13 @@ labels exactly, a boosted ensemble's within ``rtol=1e-5`` (another order of
 the sums), COUNTs exactly. Their accounting agrees too: recompiles (the
 reference's jit traces; the port's new input structures on the CPU, its
 captures on the card), bucket and mid-bucket hits and misses, coalesced and
-segmented batches. The cases follow ``tests/test_query_server.py`` as far
-as this slice of the port goes; the model-version lifecycle raises naming
-ROADMAP item 7.
+segmented batches. The cases follow ``tests/test_query_server.py``; the
+model-version lifecycle (ROADMAP item 7) is held against the reference
+here verb by verb and in ``tests/test_torch_lifecycle.py`` in depth.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -360,26 +362,118 @@ def test_undonated_registration_serves_the_same(sessions):
     _assert_close(ra.result, rb.result, rtol=0)
 
 
+def _v2(db, pipes) -> None:
+    """Serve ``SQL_PARAM`` as ``q``, answer one request, publish model
+    ``m`` v2 (the decision tree) without warming it, and stage it on the
+    route through the server's ``stage_version``."""
+    is_ref = isinstance(db, jraven.Session)
+    db.sql(SQL_PARAM).prepare(transform="sql", params={"t": 0.6}).serve(name="q")
+    db.server.submit("q", _batch(90, seed=5))
+    db.flush()
+    db.models.publish("m", pipes["dt"][0 if is_ref else 1], warm="off")
+    q2 = db.sql(SQL_PARAM.replace("'m'", "'m@2'"))
+    v2 = q2.prepare(transform="sql", params={"t": 0.6})
+    db.server.stage_version("q", q2.ir, db.tables if is_ref else db.database,
+                            version_label="v2", optimized=(v2.plan, v2.report))
+
+
+def _route_state(db) -> dict:
+    snap = db.server.route_snapshot("q")
+    keep = ("warmed", "traces", "groups", "requests", "rows", "shadow_groups",
+            "shadow_rows", "shadow_diff_rows", "shadow_errors")
+    return {"live": snap["live"], "shadow": snap["shadow"], "split": snap["split"],
+            "cutovers": snap["cutovers"], "ladder": snap["ladder"],
+            "versions": {lb: {k: v[k] for k in keep} for lb, v in snap["versions"].items()}}
+
+
+def _answer(db, n=90, seed=6):
+    req = db.server.submit("q", _batch(n, seed=seed))
+    db.flush()
+    return req.served_by, req.wait(timeout=60.0)
+
+
+def _shadowed(db):
+    db.server.warm_version("q", "v2")
+    db.server.set_shadow("q", "v2")
+    out = _answer(db)
+    deadline = time.monotonic() + 30
+    while (db.server.route_snapshot("q")["versions"]["v2"]["shadow_groups"] < 1
+           and time.monotonic() < deadline):
+        time.sleep(0.01)  # the mirror runs on the boundary pool
+    return out
+
+
+def _split(db):
+    db.server.warm_version("q", "v2")
+    db.server.set_split("q", {"v2": 0.25})
+    return [_answer(db, seed=7 + i)[0] for i in range(8)]
+
+
+def _cutover(db):
+    db.server.warm_version("q", "v2")
+    before = db.server.recompiles()
+    db.server.cutover("q", "v2")
+    out = _answer(db)
+    return out, db.server.recompiles() - before
+
+
+def _retire(db):
+    with pytest.raises(Exception, match="live") as ei:
+        db.server.retire_version("q", "v1")
+    db.server.retire_version("q", "v2")
+    return type(ei.value).__name__, _answer(db)
+
+
 LIFECYCLE = {
-    "stage_version": lambda srv: srv.stage_version("q", None, {}, version_label="v2"),
-    "warm_version": lambda srv: srv.warm_version("q", "v2"),
-    "set_shadow": lambda srv: srv.set_shadow("q", "v2"),
-    "set_split": lambda srv: srv.set_split("q", {"v2": 0.25}),
-    "cutover": lambda srv: srv.cutover("q", "v2"),
-    "retire_version": lambda srv: srv.retire_version("q", "v2"),
+    "stage_version": lambda db: sorted(db.server.routes["q"].versions),
+    "warm_version": lambda db: (db.server.warm_version("q", "v2"),
+                                db.server.warm_version("q", "v2")),
+    "set_shadow": _shadowed,
+    "set_split": _split,
+    "cutover": _cutover,
+    "retire_version": _retire,
 }
 
 
+def _same(got, want):
+    """Equal outcomes; float arrays within rtol 1e-5."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        if all(isinstance(v, np.ndarray) for v in want.values()):
+            _assert_close(got, want)
+        else:
+            for k in want:
+                _same(got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    else:
+        assert got == want
+
+
 @pytest.mark.parametrize("verb", sorted(LIFECYCLE))
-def test_lifecycle_verbs_raise_naming_item_7(sessions, verb):
-    _, db = sessions
-    db.sql(SQL_PARAM).prepare(transform="sql", params={"t": 0.6}).serve(name="q")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LIFECYCLE[verb](db.server)
+def test_lifecycle_verbs_raise_naming_item_7(sessions, pipes, verb):
+    """The server's six route verbs (ROADMAP item 7, ported) on both
+    servers, with v2 staged on the route: the same outcome (served-by
+    labels, answers, counts) and the same route state after."""
+    ref_db, db = sessions
+    got = {}
+    for side, d in (("ref", ref_db), ("port", db)):
+        _v2(d, pipes)
+        got[side] = (LIFECYCLE[verb](d), _route_state(d))
+    _same(got["port"], got["ref"])
 
 
 def test_a_circuit_breaker_raises_naming_item_7(sessions):
-    _, db = sessions
-    prep = db.sql(SQL_PARAM).prepare(transform="sql", params={"t": 0.6})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        prep.serve(options=ServeOptions(breaker_threshold=3))
+    """``breaker_threshold`` (ROADMAP item 7, ported) arms the route's
+    breaker as the reference's does."""
+    ref_db, db = sessions
+    for d, pkg in ((ref_db, jraven), (db, raven)):
+        prep = d.sql(SQL_PARAM).prepare(transform="sql", params={"t": 0.6})
+        prep.serve(name="q", options=pkg.ServeOptions(breaker_threshold=3))
+    for d in (ref_db, db):
+        reg = d.server.queries["q"]
+        assert (reg.breaker_threshold, reg.breaker_failures, reg.degraded) == (3, 0, False)
+    assert (db.server.route_snapshot("q")["versions"]["v1"]["breaker_trips"]
+            == ref_db.server.route_snapshot("q")["versions"]["v1"]["breaker_trips"] == 0)

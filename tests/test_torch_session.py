@@ -8,9 +8,10 @@ otherwise (``"sql"``, or the default ``"none"``); COUNTs must be equal and AVGs 
 reference sum the trees in another order; thresholds sit mid-way in wide
 gaps between scores, so last-bit differences move no row across them).
 Fingerprints are compared within each package: the two hash their own
-content tokens. What the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item, and the typed errors are the
-reference's.
+content tokens. The typed errors are the reference's. The session paths of
+ROADMAP items 7 (the artifact store, the fault plan, the model lifecycle,
+``recover``), 8 (verification) and 9 (runtime selection) are ported: each
+runs on both sessions with the same outcome.
 """
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ from repro.data.datasets import make_expedia, make_hospital
 from repro.ml.pipeline import save_pipeline as ref_save_pipeline
 from repro_torch import errors as terrors
 from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+from repro.exec import faults as jfaults
+from repro.relational import engine as jengine
+from repro_torch.exec.faults import FaultPlan, get_fault_plan
 from repro_torch.ml.pipeline import load_pipeline
 from repro_torch.options import ConnectOptions
 from repro_torch.relational import engine as teng
@@ -439,7 +443,7 @@ def test_registry_publish_and_resolve_match_reference(quickstart):
     db = raven.connect(ds.tables, stats=None, device="cpu")
     for _ in range(3):
         ref_db.models.publish("r", ref_pipe, warm="off")
-        db.models.publish("r", port_pipe)
+        db.models.publish("r", port_pipe, warm="off")
     reg = db.models
     assert "r" in reg and "r@2" in reg and "x" not in reg
     assert list(reg) == ["r"] and len(reg) == 1
@@ -460,7 +464,8 @@ def test_registry_publish_and_resolve_match_reference(quickstart):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported yet raises, naming its ROADMAP item
+# The paths of ROADMAP items 7, 8 and 9, ported: each works as the
+# reference's does
 # ---------------------------------------------------------------------------
 
 
@@ -488,21 +493,110 @@ def _chosen(prep, _db):
     assert [s.kind for s in prep.compiled.stages] == ["pure", "host", "pure"]
 
 
-# serving is ported; what stays out of it is the model-version lifecycle:
-# serving with a circuit breaker, and the server's version verbs. The
-# verifier and runtime selection are ported: their entries hold a check of
-# the feature instead of a ROADMAP item
+def _pkg(db):
+    return jraven if isinstance(db, jraven.Session) else raven
+
+
+def _route(db, name: str) -> dict:
+    """The route's state the two packages share (not its latency
+    percentile, nor the port's graph counts)."""
+    snap = db.server.route_snapshot(name)
+    keep = ("warmed", "traces", "degraded", "breaker_failures", "breaker_trips",
+            "groups", "requests", "rows", "errors")
+    return {"live": snap["live"], "shadow": snap["shadow"], "cutovers": snap["cutovers"],
+            "ladder": snap["ladder"],
+            "versions": {lb: {k: v[k] for k in keep} for lb, v in snap["versions"].items()}}
+
+
+def _models(db) -> dict:
+    return {name: {k: rec[k] for k in ("live", "shadow", "split", "routes")}
+            | {"versions": [(v["version"], v["state"]) for v in rec["versions"]]}
+            for name, rec in db.models.snapshot().items()}
+
+
+def _v2_staged(db, prep) -> str:
+    """Serve ``prep``, answer one request, publish ``covid_risk`` v2 (the
+    same pipeline again) warmed onto the route; returns the serve name."""
+    name = prep.serve().name
+    prep.submit(_QUICK_BATCH)
+    db.flush()
+    db.models.publish("covid_risk", db.models.resolve("covid_risk@1").pipeline,
+                      warm="sync")
+    return name
+
+
+def _served_answer(db, prep) -> dict:
+    req = prep.submit(_QUICK_BATCH)
+    db.flush()
+    return {"served_by": req.served_by, **_values(req.wait(timeout=60.0))}
+
+
+def _breaker(db, prep):
+    name = prep.serve(options=_pkg(db).ServeOptions(breaker_threshold=2)).name
+    return db.server.queries[name].breaker_threshold, _route(db, name)
+
+
+def _warm(db, prep):
+    name = prep.serve().name
+    req = prep.submit(_QUICK_BATCH)
+    db.flush()
+    return db.server.warm_version(name, "v1"), _route(db, name), _values(req.result)
+
+
+def _server_cutover(db, prep):
+    name = _v2_staged(db, prep)
+    db.server.cutover(name, "v2")
+    return _route(db, name), _served_answer(db, prep)
+
+
+def _server_shadow(db, prep):
+    name = _v2_staged(db, prep)
+    db.server.set_shadow(name, "v2")
+    return _route(db, name)["shadow"], _served_answer(db, prep)
+
+
+def _recover(db, prep):
+    try:
+        db.recover()
+    except Exception as e:  # noqa: BLE001 — the typed error is compared
+        return type(e).__name__, str(e)
+    raise AssertionError("recover() without an artifact store did not raise")
+
+
+def _shadow(db, prep):
+    name = _v2_staged(db, prep)
+    db.models.shadow("covid_risk", 2)
+    return _models(db), _route(db, name)["shadow"]
+
+
+def _cutover(db, prep):
+    name = _v2_staged(db, prep)
+    mv = db.models.cutover("covid_risk", 2)
+    return mv.state, _models(db), _served_answer(db, prep), _route(db, name)["cutovers"]
+
+
+def _at_shadow(db, prep):
+    _v2_staged(db, prep)
+    db.models.shadow("covid_risk", 2)
+    q = db.sql(QUICKSTART.replace("'covid_risk'", "'covid_risk@shadow'"))
+    return _values(q.prepare(transform="dnn", params={"threshold": 0.5})())
+
+
+_QUICK_BATCH = make_hospital(300, seed=9).tables["patients"]
+_ONE_STALL = {"delay_ms": 1.0, "times": 1}  # a latency fault: stalls one stage call
+
+# the calls of item 7 (persistence and lifecycle) run on both sessions and
+# must come out the same; those of items 8 and 9 hold a check of the feature
+LIFECYCLE = object()
 NOT_PORTED = {
-    "serve": (lambda db, prep: prep.serve(
-        options=raven.ServeOptions(breaker_threshold=2)), "item 7"),
-    "submit": (lambda db, prep: db.server.warm_version(prep.serve().name, "v2"), "item 7"),
-    "flush": (lambda db, prep: db.server.cutover(prep.serve().name, "v2"), "item 7"),
-    "server": (lambda db, prep: db.server.set_shadow(prep.serve().name, "v2"), "item 7"),
-    "recover": (lambda db, prep: db.recover(), "item 7"),
-    "shadow": (lambda db, prep: db.models.shadow("covid_risk", 1), "item 7"),
-    "cutover": (lambda db, prep: db.models.cutover("covid_risk", 1), "item 7"),
-    "name@shadow": (lambda db, prep: db.sql(
-        "SELECT * FROM PREDICT(model='covid_risk@shadow', data=patients)"), "item 7"),
+    "serve": (_breaker, LIFECYCLE),
+    "submit": (_warm, LIFECYCLE),
+    "flush": (_server_cutover, LIFECYCLE),
+    "server": (_server_shadow, LIFECYCLE),
+    "recover": (_recover, LIFECYCLE),
+    "shadow": (_shadow, LIFECYCLE),
+    "cutover": (_cutover, LIFECYCLE),
+    "name@shadow": (_at_shadow, LIFECYCLE),
     "prepare verify": (lambda db, prep: prep.query.prepare(
         transform="dnn", params={"threshold": 0.5}, verify=True), _verified),
     "prepare strategy": (lambda db, prep: prep.query.prepare(
@@ -510,44 +604,98 @@ NOT_PORTED = {
 }
 
 
+def _same(got, want):
+    """Equal outcomes: structures exactly, float arrays within rtol 1e-5
+    (the port sums the trees in another order)."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _same(got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    elif isinstance(want, np.ndarray) and want.dtype.kind == "f":
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    elif isinstance(want, np.ndarray):
+        assert np.array_equal(got, want)
+    else:
+        assert got == want
+
+
 @pytest.mark.parametrize("what", sorted(NOT_PORTED))
 def test_unported_session_paths_raise_naming_their_item(sessions, what):
-    """Each path raises naming its ROADMAP item; the ported ones (items 8
-    and 9) work instead, and their check runs."""
-    _, db = sessions
+    """The paths of item 7 (serving with a breaker, the server's version
+    verbs, the registry's shadow and cutover, ``name@shadow``,
+    ``recover``) run on both sessions with the same outcome; those of items
+    8 and 9 work, and their check runs. None raises NotImplementedError."""
+    ref_db, db = sessions
+    call, check = NOT_PORTED[what]
+    if check is LIFECYCLE:  # each package counts only this scenario's work
+        jengine.clear_plan_cache()
+        teng.clear_plan_cache()
     prep = db.sql(QUICKSTART).prepare(transform="dnn", params={"threshold": 0.5})
-    call, item = NOT_PORTED[what]
-    if callable(item):
-        item(call(db, prep), db)
+    if check is not LIFECYCLE:
+        check(call(db, prep), db)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        call(db, prep)
+    ref_prep = ref_db.sql(QUICKSTART).prepare(transform="dnn", params={"threshold": 0.5})
+    _same(call(db, prep), call(ref_db, ref_prep))
 
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"cache_dir": "x"}, "item 7"),
     ({"cache_max_bytes": 1 << 20}, "item 7"),
     ({"options": ConnectOptions(cache_dir="x")}, "item 7"),
-    ({"options": ConnectOptions(faults=object())}, "item 7"),
+    ({"options": ConnectOptions(faults=FaultPlan({"latency": _ONE_STALL}, seed=0))}, "item 7"),
     ({"verify": "strict"}, "item 8"),
     ({"options": ConnectOptions(verify=True)}, "item 8"),
     ({"strategy": _Always("sql")}, "item 9"),
 ])
-def test_unported_connect_options_raise_naming_their_item(quickstart, kwargs, item):
-    """The session knobs of item 7 raise naming it; those of items 8
-    (``verify``) and 9 (``strategy``), ported, open a session that applies
-    them to every prepared query."""
-    ds, _, port_pipe, score = quickstart
-    if item == "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            raven.connect(ds.tables, device="cpu", **kwargs)
-        return
+def test_unported_connect_options_raise_naming_their_item(quickstart, tmp_path, kwargs, item):
+    """Every session knob opens a session that applies it, as the
+    reference's does: the knobs of item 7 (``cache_dir``, under
+    ``tmp_path``, installs an artifact store that persists the prepared
+    plan; ``cache_max_bytes`` alone installs none; ``faults`` installs the
+    plan until ``close``), of item 8 (``verify``) and of item 9
+    (``strategy``) on every prepared query."""
+    ds, ref_pipe, port_pipe, score = quickstart
+    if "cache_dir" in kwargs:
+        kwargs = {"cache_dir": str(tmp_path / kwargs["cache_dir"])}
+    elif "options" in kwargs and kwargs["options"].cache_dir is not None:
+        kwargs = {"options": ConnectOptions(cache_dir=str(tmp_path / "x"))}
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)  # the legacy verify keyword
+        warnings.simplefilter("ignore", DeprecationWarning)  # the legacy keywords
         db = raven.connect(ds.tables, device="cpu", **kwargs)
+        ref_kwargs = dict(kwargs)
+        if isinstance(kwargs.get("options"), ConnectOptions) and item == "item 7":
+            ref_kwargs["options"] = jraven.ConnectOptions(
+                cache_dir=kwargs["options"].cache_dir and str(tmp_path / "ref"),
+                faults=kwargs["options"].faults and jfaults.FaultPlan(
+                    {"latency": _ONE_STALL}, seed=0))
+        elif "cache_dir" in kwargs:
+            ref_kwargs["cache_dir"] = str(tmp_path / "ref")
+        ref_db = jraven.connect(ds.tables, **ref_kwargs) if item == "item 7" else None
     db.register_model("covid_risk", port_pipe)
     t = _gap_thresholds(score[ds.tables["patients"]["asthma"] == 1], (0.5,))[0]
     prep = db.sql(QUICKSTART).prepare(params={"threshold": t})
+    if item == "item 7":
+        ref_db.register_model("covid_risk", ref_pipe)
+        ref_prep = ref_db.sql(QUICKSTART).prepare(params={"threshold": t})
+        _assert_agg_close(prep(), ref_prep())
+        has_store = db.artifact_store is not None
+        wants_store = db.connect_options.cache_dir is not None
+        assert has_store == (ref_db.artifact_store is not None) == wants_store
+        if has_store:
+            assert teng.get_artifact_store() is db.artifact_store
+            assert (db.cache_stats()["artifact_store"]["plan_saves"]
+                    == ref_db.cache_stats()["artifact_store"]["plan_saves"] == 1)
+        faults = db.connect_options.faults
+        assert (faults is None) == (ref_db.connect_options.faults is None)
+        assert faults is None or faults.injected() == ref_db.connect_options.faults.injected()
+        ref_db.close()
+        db.close()
+        assert teng.get_artifact_store() is None and get_fault_plan() is None
+        return
     if item == "item 8":
         assert prep.report.transforms == {0: "none"}
         assert prep.report.verification[0] == "input: ok"
