@@ -51,7 +51,15 @@ registry; and a third path serves an LM through ``build_model(get_config(...)).i
   on the card from a seed), 16 slots over a 1,024-row cache, 32 requests of
   512-token prompts and 32–64 new tokens, so slots are recycled mid-flight
   and prefills come in batches of several sizes (``flash_attention`` once a
-  layer a prefill, ``decode_attention`` once a layer a decode tick).
+  layer a prefill, ``decode_attention`` once a layer a decode tick);
+* then, granite freed, the moe family: qwen2-moe-a2.7b at its published
+  width and depth (24 layers, d_model 2048, 16 query and 16 KV heads, 60
+  experts of d_ff 1408 top-4 padded to 64, 4 shared experts as one 5,632-
+  wide FFN, vocab 151,936, qkv bias, bf16, random weights drawn on the card
+  from a seed) with the same traffic.
+
+Before the moe family, the static-analysis gate ``python -m
+repro_torch.analysis`` runs in a child process on the card.
 
 In order it
 
@@ -186,11 +194,29 @@ In order it
    versions and holds the eager run's tokens equal to them, step by step,
    up to the first near-tie between a step's top two logits; profiles a
    captured and an eager tick (the card's busy time and idle share);
-12. prints the run's total time, the kernel table as one JSON line
+12. the analysis phase: ``python -m repro_torch.analysis`` in a child
+   process on its default device, the card (the lint over the port's
+   sources, the eight verification scenarios, a lifecycle and a fault drill
+   audited by ``check_registry``), which must exit 0; prints the violations
+   by rule id (all 0), the checks passed, the gate's wall time and the
+   kernel launches its scenarios made;
+13. the moe phase: granite's parameters, caches and graph freed,
+   qwen2-moe-a2.7b drawn on the card and served eagerly (recording what
+   the attention kernels are handed: each site, at H = KH = 16, held
+   against its plain version and timed); the share of (token, k)
+   assignments capacity dropped in the first prefill and in one tick, and
+   the first prefill's routing with plain attention against the kernels'
+   (at least 90% of layer 0's assignments equal), read eagerly outside the
+   captured tick; then as in 11, the counts zeroed before and read after
+   the captured run (24 launches of each attention kernel an admission and
+   a tick), its tokens equal to the eager run's, the plain-attention run,
+   the profiled ticks; the memory allocated and its peak;
+14. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
-   included), the LM serving run) and, last, the device line
+   included), the LM serving run, the analysis gate's scenarios and the
+   moe serving run) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -200,9 +226,11 @@ when the rest of the repository is not beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -232,6 +260,8 @@ MEASURES = ("x", "v0", "v1")
 LM_ARCH, LM_SEED = "granite-3-8b", 0
 LM_SLOTS, LM_CACHE, LM_PROMPT, LM_REQUESTS = 16, 1024, 512, 32
 LM_NEW_TOKENS = (32, 64)  # max_new_tokens drawn from this range, inclusive
+MOE_ARCH, MOE_SEED = "qwen2-moe-a2.7b", 0  # served with the LM's traffic
+GATE_TIMEOUT_S = 600
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
 KERNELS = {
@@ -912,6 +942,14 @@ def extra_sites(dev, calls) -> list[tuple[str, str, tuple, dict]]:
     return sites
 
 
+def report_site(name: str, label: str, row: dict) -> None:
+    print(f"parity {name:<16} [{label}] {row['shape']}: max_abs_err="
+          f"{row['max_abs_err']!r} ms={row['ms']!r} cold_ms={row['cold_ms']!r} "
+          f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
+          f"({row['bound_by']}) library_ms={row['library_ms']!r}"
+          + (f" (fastest: {row['library']})" if row["library"] else ""), flush=True)
+
+
 def parity_phase(calls, extra) -> dict[str, dict]:
     """Every call site the warm-up recorded; per kernel, the row for its
     largest site (max_abs_err is the largest over all its sites). The
@@ -922,11 +960,7 @@ def parity_phase(calls, extra) -> dict[str, dict]:
     for name, label, args, kwargs, is_extra in sites:
         row = parity_site(name, args, kwargs,
                           dyadic=label.startswith(("dashboard", "dyadic")))
-        print(f"parity {name:<16} [{label}] {row['shape']}: max_abs_err="
-              f"{row['max_abs_err']!r} ms={row['ms']!r} cold_ms={row['cold_ms']!r} "
-              f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
-              f"({row['bound_by']}) library_ms={row['library_ms']!r}"
-              + (f" (fastest: {row['library']})" if row["library"] else ""), flush=True)
+        report_site(name, label, row)
         best = rows.get(name)
         if best is not None and is_extra:
             best["max_abs_err"] = max(row["max_abs_err"], best["max_abs_err"])
@@ -2420,6 +2454,58 @@ def lifecycle_phase(case, thresholds, smi: str, device=None) -> dict[str, int]:
     return counts
 
 
+def serve_counted(model, params, requests, dev, eager_run: tuple, arch: str) -> dict[str, int]:
+    """The LM serving path, counted: the workload served with the decode
+    tick captured (one graph), its launches read just after (one
+    ``flash_attention`` a layer an admission, one ``decode_attention`` a
+    layer a tick and the warm-up tick) and its tokens held equal to the
+    eager run ``eager_run`` = (trace, outputs, wall); then served once more
+    eagerly with plain attention, its tokens held against the eager run's
+    up to the first near-tie; a captured and an eager tick profiled.
+    Returns the counted run's launches."""
+    from repro_torch.exec import capture
+
+    eager, eager_outputs, eager_wall = eager_run
+    zero_counts()
+    traced, outputs, wall = serve_lm(model, params, requests, dev)
+    lm_counts = read_counts()
+    stats = report_lm(traced, outputs, wall, f"{arch}, tick captured")
+    eager_stats = report_lm(eager, eager_outputs, eager_wall, f"{arch}, tick eager")
+    eng = traced.engine
+    print(f"launches of the {arch} serving run: {lm_counts}; decode tick captured "
+          f"{eng.captures} time(s) (after one eager warm-up tick), replayed "
+          f"{eng.replays} times; the graph holds {eng.graph_bytes} bytes", flush=True)
+    n_layers = model.cfg.n_layers
+    check(eng.captures == 1 and eng.replays == stats["ticks"], (eng.captures, eng.replays))
+    check(lm_counts["flash_attention"] == n_layers * stats["admissions"]
+          and lm_counts["decode_attention"] == n_layers * (stats["ticks"] + eng.captures)
+          and stats["admissions"] > 1 and stats["ticks"] > 0,
+          f"attention launches {lm_counts} for {stats['admissions']} admissions and "
+          f"{stats['ticks']} ticks (and {eng.captures} warm-up) of {n_layers} layers")
+    check(all(lm_counts[n] == 0 for n in KERNELS if n not in ATTENTION), lm_counts)
+    check(outputs == eager_outputs, f"{arch}: the captured tick served other tokens")
+    print(f"{arch}: captured and eager ticks served the same {stats['generated_tokens']} "
+          f"tokens; median tick {stats['decode_tick_ms_median']!r} ms captured, "
+          f"{eager_stats['decode_tick_ms_median']!r} ms eager", flush=True)
+    del traced
+    with plain_attention(), capture.disabled():
+        plain, plain_outputs, plain_wall = serve_lm(model, params, requests, dev)
+    check(read_counts() == lm_counts, "the plain run launched a kernel")
+    full, near, held, D = compare_served(eager, plain, eager_outputs, plain_outputs)
+    print(f"{arch} eager served tokens vs the plain-attention run ({plain_wall:.2f} s): "
+          f"{full} of {LM_REQUESTS} requests equal in full, {near} differ after a near-tie "
+          f"(top-2 logit gap <= 2 x {D!r}, the largest logit difference on the "
+          f"matching steps); {held} of {stats['generated_tokens']} tokens held "
+          f"equal before each request's first near-tie", flush=True)
+    del plain
+    profile_lm(model, params, requests, dev, stats["decode_tick_ms_median"],
+               f"{arch}, captured")
+    with capture.disabled():
+        profile_lm(model, params, requests, dev, eager_stats["decode_tick_ms_median"],
+                   f"{arch}, eager")
+    return lm_counts
+
+
 def report_lm(traced: TracedModel, outputs: dict, wall: float, mode: str) -> dict:
     tokens = sum(len(o) for o in outputs.values())
     ttft = sorted(traced.first_token_s.values())
@@ -2434,8 +2520,194 @@ def report_lm(traced: TracedModel, outputs: dict, wall: float, mode: str) -> dic
         "generated_tokens": tokens, "wall_s": wall,
         "generated_tokens_per_s": tokens / wall,
     }
-    print(f"lm serving, tick {mode}:", json.dumps(stats), flush=True)
+    print(f"lm serving {mode}:", json.dumps(stats), flush=True)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# The static-analysis gate
+# ---------------------------------------------------------------------------
+
+
+def analysis_phase(smi: str) -> dict[str, int]:
+    """``python -m repro_torch.analysis`` in a child process, on its default
+    device (the card): the lint over the port's sources, the eight
+    verification scenarios, the lifecycle and the fault drill audited by
+    ``check_registry``. It must exit 0. Prints the violations by rule id
+    (all 0), the checks passed and the gate's wall time; returns the kernel
+    launches its scenarios made (the gate prints them)."""
+    from repro_torch.analysis.rules import rule_catalog
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                          capture_output=True, text=True, timeout=GATE_TIMEOUT_S,
+                          env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    by_rule = dict.fromkeys((r.id for r in rule_catalog()), 0)
+    for line in lines:
+        m = re.match(r"\[([\w-]+)\]", line)
+        if m:
+            by_rule[m.group(1)] = by_rule.get(m.group(1), 0) + 1
+    print(f"analysis gate [{smi}]: exit {proc.returncode} in {wall:.2f} s; violations by "
+          f"rule: {json.dumps(by_rule)}", flush=True)
+    check(proc.returncode == 0 and not any(by_rule.values()),
+          (proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
+    passed = [line[4:] for line in lines if line.startswith("ok: ")]
+    for line in passed:
+        print(f"analysis gate passed: {line}", flush=True)
+    scenarios = [p for p in passed if p.startswith("scenario ")]
+    check(len(scenarios) == 8 and any(p.startswith("lifecycle") for p in passed)
+          and any(p.startswith("faultdrill") for p in passed)
+          and any("lint over" in p for p in passed), passed)
+    launches = json.loads(next(line for line in lines
+                               if line.startswith("kernel launches:")).split(":", 1)[1])
+    print(f"analysis gate kernel launches: {json.dumps(launches)}", flush=True)
+    check(launches["gather_join"] > 0 and launches["segment_agg"] > 0,
+          f"the gate's scenarios launched no relational kernel: {launches}")
+    return {name: launches.get(name, 0) for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# The moe family served: qwen2-moe-a2.7b
+# ---------------------------------------------------------------------------
+
+
+def build_moe(dev):
+    """qwen2-moe-a2.7b at its published width and depth, bf16, random
+    weights drawn on the card from a seed, a layer of a leaf at a time (one
+    stacked expert leaf is 4.4e9 elements)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, param_count
+
+    cfg = get_config(MOE_ARCH)
+    check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.hd, cfg.d_ff, cfg.moe_experts, cfg.moe_top_k, cfg.moe_pad_experts,
+           cfg.moe_shared_experts, cfg.moe_shared_d_ff, cfg.vocab_size, cfg.qkv_bias,
+           cfg.moe_dispatch)
+          == ("moe", "bfloat16", 24, 2048, 16, 16, 128, 1408, 60, 4, 64, 4, 5632, 151936,
+              True, "einsum"), cfg)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(MOE_SEED), device=dev)
+    torch.cuda.synchronize()
+    held = sum(t.numel() for t in model.leaves.values())
+    check(params["layers"]["moe"]["w1_exp"].shape == (24, 64, 2048, 1408),
+          params["layers"]["moe"]["w1_exp"].shape)
+    print(f"{MOE_ARCH}: {param_count(cfg)} parameters ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe_experts} experts "
+          f"of d_ff {cfg.d_ff} top-{cfg.moe_top_k} padded to {cfg.moe_pad_experts}, shared "
+          f"FFN {cfg.moe_shared_d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{params['embed'].shape[0]}, {cfg.dtype}), {held} held with the padding, drawn "
+          f"on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    return model, params
+
+
+@contextmanager
+def routes_seen():
+    """Every moe layer's routing while inside (``moe.route`` on its input:
+    each (token, k)'s expert and whether capacity kept it), run once more
+    before the layer itself; eager only."""
+    from repro_torch.models import moe, transformer
+
+    real = transformer.moe_ffn
+    seen: list = []
+
+    def routed(p, x, cfg):
+        seen.append(moe.route(p, x, cfg))
+        return real(p, x, cfg)
+
+    transformer.moe_ffn = routed
+    try:
+        yield seen
+    finally:
+        transformer.moe_ffn = real
+
+
+MOE_ROUTES_EQUAL_LAYER0 = 0.9  # attention's rounding flips only near-tied gates
+
+
+def moe_routing(model, params, requests, dev) -> dict:
+    """Read outside the captured tick, eagerly: the share of (token, k)
+    assignments capacity dropped, over all layers, in the first prefill (the
+    first 16 requests admitted together) and in the decode tick after it;
+    and the same prefill with plain attention, its routing against the
+    kernels' layer by layer (expert and kept both equal). At layer 0 the
+    router's input differs only by the attention's rounding; later layers
+    add the experts a flipped assignment changed."""
+    from repro_torch.exec import capture
+    from repro_torch.serve import ServeEngine
+
+    def admitted():
+        eng = ServeEngine(model, params, n_slots=LM_SLOTS, cache_len=LM_CACHE, device=dev)
+        eng.prefill_len = LM_PROMPT
+        for prompt, n in requests[:LM_SLOTS]:
+            eng.submit(prompt, max_new_tokens=n)
+        eng._admit()
+        return eng
+
+    with capture.disabled():
+        with routes_seen() as prefill:
+            eng = admitted()
+        with routes_seen() as tick:
+            eng.step()
+        with routes_seen() as plain, plain_attention():
+            admitted()
+    out = {}
+    for part, calls in (("first prefill", prefill), ("one tick", tick)):
+        check(len(calls) == model.cfg.n_layers, (part, len(calls)))
+        dropped = sum(int((~kept).sum()) for _, kept in calls)
+        total = sum(kept.numel() for _, kept in calls)
+        out[part] = {"dropped": dropped, "assignments": total, "share": dropped / total}
+    equal = [float(((ek == ep) & (kk == kp)).float().mean())
+             for (ek, kk), (ep, kp) in zip(prefill, plain)]
+    out["first prefill, routes equal with plain attention"] = {
+        "layer 0": equal[0], "mean": float(np.mean(equal)), "lowest": min(equal),
+        "lowest at layer": int(np.argmin(equal))}
+    print(f"{MOE_ARCH} routing, summed over {model.cfg.n_layers} layers:", json.dumps(out),
+          flush=True)
+    check(equal[0] >= MOE_ROUTES_EQUAL_LAYER0,
+          f"layer 0 routes {equal[0]!r} of the assignments as with plain attention")
+    return out
+
+
+def moe_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """qwen2-moe-a2.7b served with the LM's traffic (16 slots over a
+    1,024-row cache, 32 requests of 512-token prompts, 32-64 new tokens):
+    an eager run recording what the attention kernels are handed, each such
+    site held against its plain version and timed (its error folded into
+    the kernel's row); the capacity drops and the routing against plain
+    attention (``moe_routing``); the counted run with the tick
+    captured, whose tokens must equal the eager run's, with 24
+    ``flash_attention`` launches an admission and 24 ``decode_attention`` a
+    tick; a run with plain attention, whose tokens must equal the eager
+    run's up to the first near-tie; a profiled captured and eager tick.
+    Returns the counted run's launches."""
+    from repro_torch.exec import capture
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params = build_moe(dev)
+    requests = lm_requests(model.cfg.vocab_size)
+    with Recorder() as rec, capture.disabled():
+        eager, eager_outputs, eager_wall = serve_lm(model, params, requests, dev,
+                                                    recorder=rec)
+    print(f"{MOE_ARCH} warm-up (eager tick) served {LM_REQUESTS} requests in "
+          f"{eager_wall:.2f} s", flush=True)
+    check(sorted({c[0] for c in rec.calls}) == sorted(ATTENTION),
+          f"kernels reached: {sorted({c[0] for c in rec.calls})}")
+    for name, label, args, kwargs in rec.calls:
+        row = parity_site(name, args, kwargs, dyadic=False)
+        report_site(name, f"{MOE_ARCH} {label}", row)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+    del rec
+    moe_routing(model, params, requests, dev)
+    lm_counts = serve_counted(model, params, requests, dev,
+                              (eager, eager_outputs, eager_wall), MOE_ARCH)
+    print(f"{MOE_ARCH} [{smi}]: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return lm_counts
 
 
 # ---------------------------------------------------------------------------
@@ -2561,45 +2833,28 @@ def main() -> int:
             counts[name] += phase[name]
 
     # the LM serving path, counted: the decode tick captured, one graph
-    zero_counts()
-    traced, outputs, wall = serve_lm(model, params, requests, dev)
-    lm_counts = read_counts()
-    stats = report_lm(traced, outputs, wall, "captured")
-    eager_stats = report_lm(eager, eager_outputs, eager_wall, "eager")
-    engine = traced.engine
-    print(f"launches of the LM serving run: {lm_counts}; decode tick captured "
-          f"{engine.captures} time(s) (after one eager warm-up tick), replayed "
-          f"{engine.replays} times; the graph holds {engine.graph_bytes} bytes", flush=True)
-    n_layers = model.cfg.n_layers
-    check(engine.captures == 1 and engine.replays == stats["ticks"], (engine.captures,
-                                                                      engine.replays))
-    check(lm_counts["flash_attention"] == n_layers * stats["admissions"]
-          and lm_counts["decode_attention"] == n_layers * (stats["ticks"] + engine.captures)
-          and stats["admissions"] > 1 and stats["ticks"] > 0,
-          f"attention launches {lm_counts} for {stats['admissions']} admissions and "
-          f"{stats['ticks']} ticks (and {engine.captures} warm-up) of {n_layers} layers")
-    check(all(lm_counts[n] == 0 for n in KERNELS if n not in ATTENTION), lm_counts)
-    check(outputs == eager_outputs, "the captured tick served other tokens than the eager")
-    print(f"lm: captured and eager ticks served the same {stats['generated_tokens']} tokens; "
-          f"median tick {stats['decode_tick_ms_median']!r} ms captured, "
-          f"{eager_stats['decode_tick_ms_median']!r} ms eager", flush=True)
-    mark("LM serving, tick captured")
-    with plain_attention(), capture.disabled():
-        plain, plain_outputs, plain_wall = serve_lm(model, params, requests, dev)
-    check(read_counts() == lm_counts, "the plain run launched a kernel")
-    full, near, held, D = compare_served(eager, plain, eager_outputs, plain_outputs)
-    print(f"eager served tokens vs the plain-attention run ({plain_wall:.2f} s): {full} of "
-          f"{LM_REQUESTS} requests equal in full, {near} differ after a near-tie "
-          f"(top-2 logit gap <= 2 x {D!r}, the largest logit difference on the "
-          f"matching steps); {held} of {stats['generated_tokens']} tokens held "
-          f"equal before each request's first near-tie", flush=True)
+    lm_counts = serve_counted(model, params, requests, dev,
+                              (eager, eager_outputs, eager_wall), LM_ARCH)
     for name in ATTENTION:
         counts[name] = lm_counts[name]
-    mark("LM plain-attention run")
-    profile_lm(model, params, requests, dev, stats["decode_tick_ms_median"], "captured")
-    with capture.disabled():
-        profile_lm(model, params, requests, dev, eager_stats["decode_tick_ms_median"], "eager")
+    mark("LM serving")
     session.close()
+
+    gate = analysis_phase(smi)
+    for name in KERNELS:
+        counts[name] += gate[name]
+    mark("analysis phase")
+    # the moe family served, counted; granite-3-8b's parameters, caches and
+    # tick graph freed first
+    del model, params, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{LM_ARCH} freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    moe_counts = moe_phase(dev, smi, rows)
+    for name in ATTENTION:
+        counts[name] += moe_counts[name]
+    mark("moe serving phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():

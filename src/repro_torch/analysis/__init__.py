@@ -1,5 +1,5 @@
-"""Static analysis for the port: the plan/StageGraph verifier and the
-serving path's runtime checks.
+"""Static analysis for the port: the plan/StageGraph verifier, the serving
+path's runtime checks, the registry audit and the concurrency lint.
 
 Public surface:
 
@@ -10,10 +10,13 @@ Public surface:
   * :func:`repro_torch.analysis.verifier.verify_plan` — lower + verify in
     one call;
   * :func:`repro_torch.analysis.runtime.runtime_assert` — the serving
-    path's invariant checks (``RAVEN_ANALYSIS_ASSERTS``).
-
-The registry checks, the concurrency lint and the ``python -m`` gate are
-ROADMAP.md Queue 1 item 8's remainder, not ported yet.
+    path's invariant checks (``RAVEN_ANALYSIS_ASSERTS``);
+  * :func:`repro_torch.analysis.registry_check.check_registry` — the model
+    lifecycle and fault-tolerance state replayed from its evidence;
+  * :func:`repro_torch.analysis.concurrency.lint_repo` — lock-discipline and
+    forbidden-pattern lint over the port's sources;
+  * ``python -m repro_torch.analysis [--device cpu]`` — all of them as a CI
+    gate, on the card unless asked otherwise.
 """
 from repro_torch.analysis.rules import (  # noqa: F401
     AnalysisResult,
@@ -21,6 +24,11 @@ from repro_torch.analysis.rules import (  # noqa: F401
     VerificationWarning,
     Violation,
     rule_catalog,
+)
+from repro_torch.analysis.concurrency import lint_repo, lint_source  # noqa: F401
+from repro_torch.analysis.registry_check import (  # noqa: F401
+    check_fault_tolerance,
+    check_registry,
 )
 from repro_torch.analysis.runtime import (  # noqa: F401
     RuntimeInvariantError,

@@ -708,7 +708,7 @@ class ArtifactStore:
         process (stale entries show up as ``compat=False`` instead of
         silently wasting disk until eviction).
         """
-        now = time.time()  # file mtimes are wall-clock
+        now = time.time()  # analysis: allow[wallclock-timing] — file mtimes
         out: list[StoreEntry] = []
         for d in self._entries():
             meta = self._read_meta(d)

@@ -1,9 +1,11 @@
-"""Dense decoder stacks: parameter shape trees, prefill and one decode step.
+"""Decoder stacks (dense and moe): parameter shape trees, prefill and one
+decode step.
 
 The reference scans one traced layer body over the stacked parameter tree;
 here each stack is a Python loop over the same stacked leaves, layer ``l``
-reading the views ``w[l]``. The MoE, encoder and enc-dec stacks, and the
-training forward, come with their ROADMAP items.
+reading the views ``w[l]``. A moe layer's MLP is :func:`moe_ffn`. The
+encoder and enc-dec stacks, and the training forward, come with their
+ROADMAP items.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import ArchConfig
+from repro_torch.models.moe import moe_ffn, moe_param_shapes
 
 
 # ---------------------------------------------------------------------------
@@ -39,14 +42,25 @@ def mlp_param_shapes(cfg: ArchConfig) -> dict:
 
 
 def decoder_layer_shapes(cfg: ArchConfig) -> dict:
-    """A dense decoder layer (MoE layers and the enc-dec cross-attention
-    come with their families, ROADMAP Queue 1 item 10)."""
-    return {
+    """A dense or moe decoder layer (the enc-dec cross-attention comes with
+    its family, ROADMAP Queue 1 item 10)."""
+    s = {
         "ln1": (cfg.d_model,),
         "ln2": (cfg.d_model,),
         "attn": attn_param_shapes(cfg),
-        "mlp": mlp_param_shapes(cfg),
     }
+    if cfg.family == "moe":
+        s["moe"] = moe_param_shapes(cfg)
+    else:
+        s["mlp"] = mlp_param_shapes(cfg)
+    return s
+
+
+def _ffn(lp: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The layer's MLP on (B, S, D): experts in a moe layer, else dense."""
+    if cfg.family == "moe":
+        return moe_ffn(lp["moe"], h, cfg)
+    return L.mlp_block(lp["mlp"], h, cfg)
 
 
 def stack_shapes(layer_shapes: dict, n: int) -> dict:
@@ -114,7 +128,7 @@ def decoder_prefill(
         att = att[:, :, :Hr].reshape(B, S, cfg.n_heads * hd)
         h = h + att @ lp["attn"]["wo_row"]
         hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.mlp_block(lp["mlp"], hn2, cfg)
+        h = h + _ffn(lp, hn2, cfg)
         kcs[i, :, :S] = k
         vcs[i, :, :S] = v
     return h, (kcs, vcs)
@@ -151,5 +165,5 @@ def decoder_decode_step(
         att = L.attention_decode(q[:, 0], kc, vc, valid, window=window)
         h = h + att.reshape(B, -1) @ lp["attn"]["wo_row"]
         hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        h = h + L.mlp_block(lp["mlp"], hn2[:, None, :], cfg)[:, 0]
+        h = h + _ffn(lp, hn2[:, None, :], cfg)[:, 0]
     return h, (kcs, vcs)

@@ -1,4 +1,5 @@
-"""Model zoo: the dense decoder LM of the reference's zoo, on PyTorch.
+"""Model zoo: the decoder LMs of the reference's zoo (dense and moe), on
+PyTorch.
 
 Every model exposes the reference's surface for serving:
 
@@ -7,7 +8,7 @@ Every model exposes the reference's surface for serving:
   prefill  — full-prompt forward → (last logits, caches)
   decode   — one-token step over caches → (logits, caches)
 
-``build_model`` builds the ``dense`` family. The ``moe``, ``vlm``,
+``build_model`` builds the ``dense`` and ``moe`` families. The ``vlm``,
 ``encdec``, ``ssm`` and ``hybrid`` families, and training (``loss``), are
 ROADMAP Queue 1 item 10 and raise until they are ported.
 """
@@ -122,7 +123,7 @@ class Model(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Decoder-LM family (dense)
+# Decoder-LM families (dense, moe)
 # ---------------------------------------------------------------------------
 
 
@@ -166,7 +167,6 @@ def _lm_decode(params, batch, caches, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 _NOT_PORTED = {
-    "moe": "the moe family",
     "vlm": "the vlm family (vision projector)",
     "encdec": "the encdec family (whisper)",
     "ssm": "the ssm family (xlstm)",
@@ -175,7 +175,7 @@ _NOT_PORTED = {
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return Model(cfg)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(

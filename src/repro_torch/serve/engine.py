@@ -52,10 +52,10 @@ class Request:
 class ServeEngine:
     def __init__(self, model, params, *, n_slots: int = 4, cache_len: int = 256,
                  device=None):
-        if model.cfg.family != "dense":
+        if model.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                "ServeEngine drives the dense decoder LM; the other families "
-                "are ROADMAP Queue 1 item 10"
+                "ServeEngine drives the dense and moe decoder LMs; the other "
+                "families are ROADMAP Queue 1 item 10"
             )
         self.device = resolve_device(device)
         leaf = params["embed"]

@@ -20,7 +20,10 @@ on the request path (bitwise the cold run), a warmed version's cutover
 captures nothing, a ladder past the capture cache's capacity shows as a
 warm deficit, a one-shot call on a stored but not preloaded bucket counts
 its capture, and a kernel's launch error fails its requests without
-tripping the breaker.
+tripping the breaker. The moe family: both attention kernels at
+qwen2-moe-a2.7b's serving shapes (H = KH = 16, D = 128, bf16), ``moe_ffn``
+on the card against its CPU run (both dispatch variants, capacity drops, a
+captured decode shape), and the static-analysis gate on the card.
 """
 from __future__ import annotations
 
@@ -779,6 +782,91 @@ def test_decode_attention_kernel_raises_on_an_empty_sequence(dev):
     lengths[1] = 17  # past the cache
     with pytest.raises(ValueError, match="lengths"):
         ops.decode_attention_op(q, k, k, lengths)
+
+
+def test_attention_kernels_at_the_moe_serving_shapes(dev):
+    """qwen2-moe-a2.7b's prefill (16 prompts of 512 tokens) and tick (16
+    slots over a 1,024-row cache, lengths 513..576): H = KH = 16 (G = 1),
+    D = 128, bf16, rows past the lengths NaN; the tick repeats bit for
+    bit."""
+    rng = np.random.default_rng(2048)
+    q = _normal(rng, (16, 512, 16, 128), torch.bfloat16, dev)
+    k = _normal(rng, (16, 512, 16, 128), torch.bfloat16, dev)
+    v = _normal(rng, (16, 512, 16, 128), torch.bfloat16, dev)
+    before = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, causal=True)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert _attention_err(got, want, torch.bfloat16) <= 2e-2
+    q = _normal(rng, (16, 16, 128), torch.bfloat16, dev)
+    k = _normal(rng, (16, 1024, 16, 128), torch.bfloat16, dev)
+    v = _normal(rng, (16, 1024, 16, 128), torch.bfloat16, dev)
+    lengths = torch.tensor(rng.integers(513, 577, size=16), dtype=torch.int32, device=dev)
+    kn, vn = k.clone(), v.clone()
+    for b, n in enumerate(lengths.tolist()):
+        kn[b, n:] = float("nan")
+        vn[b, n:] = float("nan")
+    before = LAUNCHES["decode_attention"]
+    got = ops.decode_attention_op(q, kn, vn, lengths)
+    assert LAUNCHES["decode_attention"] == before + 1
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    assert _attention_err(got, want, torch.bfloat16) <= 2e-2
+    assert torch.equal(got, ops.decode_attention_op(q, kn, vn, lengths))
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "arctic-480b"])
+def test_moe_ffn_on_the_card_matches_its_cpu_run(dev, name, dispatch):
+    """The reduced configs in float32 (TF32 off), several token blocks and a
+    decode tick's shape, a skewed router that drops assignments: within
+    rtol 1e-5, atol 1e-6 of the CPU run on the same weights, with the same
+    routing and drops; the decode shape also captured into a CUDA graph, whose replay
+    equals its eager run bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.exec import capture
+    from repro_torch.models.moe import moe_ffn, moe_param_shapes, route
+
+    cfg = dataclasses.replace(reduced_config(name), moe_dispatch=dispatch)
+    rng = np.random.default_rng(7)
+    p = {k: torch.tensor(rng.normal(size=shape) * (0.5 if k == "router_col"
+                                                   else 1 / np.sqrt(shape[-2])),
+                         dtype=torch.float32)
+         for k, shape in moe_param_shapes(cfg).items()}
+    p["router_col"][0, 0] = 40.0  # the first expert wins most tokens
+    pd = {k: v.to(dev) for k, v in p.items()}
+    drops = []
+    for shape, block in (((2, 40), 16), ((16, 1), 4096)):
+        x = torch.tensor(rng.normal(size=(*shape, cfg.d_model)), dtype=torch.float32)
+        x[..., 0] = 3.0
+        want = moe_ffn(p, x, cfg, token_block=block)
+        got = moe_ffn(pd, x.to(dev), cfg, token_block=block)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+        experts, kept = route(p, x, cfg, token_block=block)
+        on_card = route(pd, x.to(dev), cfg, token_block=block)
+        assert torch.equal(on_card[0].cpu(), experts) and torch.equal(on_card[1].cpu(), kept)
+        drops.append(int((~kept).sum()))
+    assert drops[0] > 0
+    xd = x.to(dev)
+    graph, out, _, _ = capture.record(lambda: moe_ffn(pd, xd, cfg), dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, moe_ffn(pd, xd, cfg))
+
+
+def test_the_analysis_gate_passes_on_the_card(dev, capsys):
+    """``python -m repro_torch.analysis`` on the card (its default device):
+    exit 0, every scenario verified, and the relational kernels launched by
+    the scenarios."""
+    from repro_torch.analysis.__main__ import main
+
+    before = dict(LAUNCHES)
+    assert main(["--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("ok: scenario") == 8 and "faultdrill scenario" in out
+    assert LAUNCHES["gather_join"] > before["gather_join"]
+    assert LAUNCHES["segment_agg"] > before["segment_agg"]
 
 
 def test_reduced_granite_serves_the_same_tokens_on_the_card_and_the_cpu(dev):

@@ -20,12 +20,14 @@ import numpy as np
 import pytest
 
 import repro as jraven
+from repro.analysis.registry_check import check_fault_tolerance as jcheck_fault_tolerance
 from repro.data.datasets import make_hospital
 from repro.exec import faults as rfaults
 from repro.ml.pipeline import save_pipeline as ref_save_pipeline
 from repro.relational import engine as reng
 
 import repro_torch as raven
+from repro_torch.analysis.registry_check import check_fault_tolerance
 from repro_torch.exec.faults import FaultPlan, FaultSpec, get_fault_plan, set_fault_plan
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.ops import kernels_enabled
@@ -337,6 +339,8 @@ def test_breaker_trips_and_degrades_bitwise(hospital, pipes, baseline):
             r = prep.submit(_batch(128, seed=21))
             db.flush()
             assert np.array_equal(_scores(r), baseline[side])
+            audit = check_fault_tolerance if side == "port" else jcheck_fault_tolerance
+            assert audit(db) == []
             return ({k: snap[k] for k in BREAKER},
                     db.cache_stats()["server"]["breaker_trips"])
         finally:

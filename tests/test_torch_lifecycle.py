@@ -12,7 +12,8 @@ reference reports but the latency percentile, with ``traces`` the port's
 specializations), registry snapshots, the served-by version of every
 request, the counts ``recompiles``, ``cutovers``, ``warm_replayed_buckets``
 and ``shadow_mirrored_groups``, and the answers: a decision tree's scores
-exactly, logistic regression's within ``rtol=1e-5``.
+exactly, logistic regression's within ``rtol=1e-5``. Where the reference's
+tests audit the registry with ``check_registry``, both audits agree.
 """
 from __future__ import annotations
 
@@ -23,11 +24,13 @@ import numpy as np
 import pytest
 
 import repro as jraven
+from repro.analysis.registry_check import check_registry as jcheck_registry
 from repro.data.datasets import make_hospital
 from repro.ml.pipeline import save_pipeline as ref_save_pipeline
 from repro.relational import engine as reng
 
 import repro_torch as raven
+from repro_torch.analysis.registry_check import check_registry
 from repro_torch.errors import (
     RegistryStateError,
     StaleQueryError,
@@ -557,3 +560,28 @@ def test_concurrent_cutover_stress(hospital, pipes):
     want_v2 = _roundtrip(ref, ref_prep, batch).wait(5)
     _assert_results(by_version["v1"], want_v1)
     _assert_results(by_version["v2"], want_v2, rtol=1e-5)
+
+
+def test_registry_check_clean_and_dirty(hospital, pipes):
+    """The reference's audit test on both packages: clean after a warmed
+    cutover; a corrupted history is a ``registry-state`` violation in
+    both."""
+    def run(side):
+        db = _db(side, hospital, pipes)
+        audit = check_registry if side == "port" else jcheck_registry
+        try:
+            prep = _served(db)
+            _roundtrip(db, prep, _batch(64, seed=2)).wait(5)
+            db.models.publish("risk", pipes["lr"][side], warm="sync")
+            db.models.cutover("risk", 2)
+            clean = audit(db)
+            # corrupt the recorded history: the independent audit notices
+            db.models.versions("risk")[0].history.append("published")
+            return clean, sorted((v.rule, v.where) for v in audit(db))
+        finally:
+            db.close()
+
+    got = _both(run)
+    assert got["port"] == got["ref"]
+    clean, dirty = got["port"]
+    assert clean == [] and any(rule == "registry-state" for rule, _ in dirty)

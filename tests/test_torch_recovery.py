@@ -12,8 +12,8 @@ recovers the same way in a fresh interpreter. Rollback rides the cutover
 machinery: zero dropped requests, zero new specializations. Each
 in-process scenario runs on both packages; topologies, counts and a
 decision tree's sums must be equal, logistic regression's within
-``rtol=1e-5``. (The reference's ``check_registry`` audit is ROADMAP item
-8's remainder, not ported yet.)
+``rtol=1e-5``. Where the reference's tests audit the registry with
+``check_registry``, both packages' audits return ``[]`` here too.
 """
 from __future__ import annotations
 
@@ -27,11 +27,13 @@ import numpy as np
 import pytest
 
 import repro as jraven
+from repro.analysis.registry_check import check_registry as jcheck_registry
 from repro.data.datasets import make_hospital
 from repro.ml.pipeline import save_pipeline as ref_save_pipeline
 from repro.relational import engine as reng
 
 import repro_torch as raven
+from repro_torch.analysis.registry_check import check_registry
 from repro_torch.errors import RecoveryError
 from repro_torch.ml.pipeline import load_pipeline
 from repro_torch.relational import engine as teng
@@ -121,6 +123,7 @@ def test_recover_restores_topology_and_results(tmp_path, hospital, pipes):
         try:
             counts = db2.recover()
             topo_b = _topology(db2)
+            assert (check_registry if side == "port" else jcheck_registry)(db2) == []
             ladder_b = db2.server.route_snapshot("q")["ladder"]
             warm = db2.cache_stats()["server"]["warm_started_buckets"]
             # route traffic deterministically back to v1 for the equality
@@ -195,6 +198,7 @@ def test_rollback_drill_zero_drop_zero_retrace(tmp_path, hospital, pipes):
             restored = db.models.rollback("risk", reason="drill")
             sums_back = _sums(db, prep)  # v1 serves again, bitwise
             snap = db.models.snapshot()["risk"]
+            assert (check_registry if side == "port" else jcheck_registry)(db) == []
             return (restored.version, restored.state, sums_v1, sums_v2, sums_back,
                     recompiles, db.cache_stats()["server"]["recompiles"],
                     snap["live"], snap["rollbacks"],
@@ -268,6 +272,7 @@ _CHILD_B = """
 import json, sys
 import numpy as np
 import repro_torch as raven
+from repro_torch.analysis.registry_check import check_registry
 from repro_torch.data.datasets import make_hospital
 
 
@@ -278,6 +283,7 @@ def main():
                        options=raven.ConnectOptions(cache_dir=cache_dir))
     counts = db.recover()
     snap = db.models.snapshot()["risk"]
+    violations = [str(v) for v in check_registry(db)]
     traces0 = db.cache_stats()["traces"]
     prep = db.sql(
         "SELECT * FROM PREDICT(model='risk', data=patients) AS p"
@@ -291,6 +297,7 @@ def main():
     print(json.dumps({
         "counts": counts,
         "sums": sums,
+        "violations": violations,
         "new_traces": db.cache_stats()["traces"] - traces0,
         "topology": {
             "live": snap["live"], "shadow": snap["shadow"],
@@ -336,6 +343,7 @@ def test_sigkill_crash_recovery_across_processes(tmp_path, pipes):
 
     assert b["counts"]["recovered"]
     assert b["counts"]["routes"] == 1 and b["counts"]["skipped"] == []
+    assert b["violations"] == []
     assert b["topology"] == a["topology"]
     assert b["topology"]["shadow"] == 2
     assert b["sums"] == a["sums"]
