@@ -56,7 +56,18 @@ registry; and a third path serves an LM through ``build_model(get_config(...)).i
   width and depth (24 layers, d_model 2048, 16 query and 16 KV heads, 60
   experts of d_ff 1408 top-4 padded to 64, 4 shared experts as one 5,632-
   wide FFN, vocab 151,936, qkv bias, bf16, random weights drawn on the card
-  from a seed) with the same traffic.
+  from a seed) with the same traffic;
+* then, qwen2-moe freed, the two recurrent families through the Model API
+  the reference's own tests drive (``build_model(get_config(...))`` →
+  ``init`` → ``prefill`` → ``decode``; the reference's ``ServeEngine``
+  refuses them, and so does the port's): xlstm-350m (24 layers, 21 mLSTM
+  and 3 sLSTM, d_model 1024, 4 heads, vocab 50,304) and zamba2-7b (81
+  Mamba2 layers of 112 heads of 64 and state 64, d_model 3584, one shared
+  attention block of 32 heads of 112 and d_ff 14,336 after every 6, window
+  4,096), both bf16 at their published widths and depths, random weights
+  drawn on the card from a seed: 16 prompts of 512 tokens prefilled, then
+  64 greedy decode steps, each one captured CUDA graph; zamba2-7b also
+  prefills one prompt of 8,192 tokens, so its window masks.
 
 Before the moe family, the static-analysis gate ``python -m
 repro_torch.analysis`` runs in a child process on the card.
@@ -211,12 +222,33 @@ In order it
    the captured run (24 launches of each attention kernel an admission and
    a tick), its tokens equal to the eager run's, the plain-attention run,
    the profiled ticks; the memory allocated and its peak;
-14. prints the run's total time, the kernel table as one JSON line
+14. the recurrent phase: qwen2-moe freed; for xlstm-350m and then
+   zamba2-7b (each freed before the next), the counts zeroed, the 16 x 512
+   prefill (zeroed state, as the reference's prefill), 64 eager decode
+   steps and 64 captured ones from the prefill's caches (and zamba2-7b's
+   8,192-token prefill), the counts read: none for xlstm (its path reaches
+   no kernel), 13 ``flash_attention`` a zamba2 prefill and 13
+   ``decode_attention`` a step; the captured steps' tokens, logits and
+   final state equal the eager ones bit for bit; the prefill time, both
+   ticks (median, p90), tokens per second, memory and the card's idle share
+   of a captured and an eager step and of the prefill (torch.profiler) are
+   printed.
+   zamba2-7b's attention sites, recorded in an eager warm-up (its prefill
+   at B = 16, S = 512, H = KH = 32, D = 112 with the window of 4,096, a
+   decode step over its 512-row ring, the 8,192-token prefill where the
+   window masks half the keys), are each held against the plain version
+   and timed beside cuDNN with the window as a boolean mask. Then the
+   recurrence check in float32: xlstm-350m at full width and zamba2-7b at
+   full width with 7 layers each prefill a 256-token prompt and decode it
+   token by token from zero state (a 256-row ring), the last logits within
+   1e-3 of their largest magnitude;
+15. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
-   included), the LM serving run, the analysis gate's scenarios and the
-   moe serving run) and, last, the device line
+   included), the LM serving run, the analysis gate's scenarios, the moe
+   serving run and the recurrent runs; ``sites``: every site held and
+   timed, the main path's and the extra ones) and, last, the device line
    ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
@@ -261,6 +293,12 @@ LM_ARCH, LM_SEED = "granite-3-8b", 0
 LM_SLOTS, LM_CACHE, LM_PROMPT, LM_REQUESTS = 16, 1024, 512, 32
 LM_NEW_TOKENS = (32, 64)  # max_new_tokens drawn from this range, inclusive
 MOE_ARCH, MOE_SEED = "qwen2-moe-a2.7b", 0  # served with the LM's traffic
+XLSTM_ARCH, ZAMBA_ARCH, REC_SEED = "xlstm-350m", "zamba2-7b", 0
+REC_BATCH, REC_PROMPT, REC_STEPS = 16, 512, 64  # prompts, their tokens, decode steps
+REC_LONG = 8192  # zamba2-7b's one long prompt: its window of 4,096 masks
+REC_CHECK_BATCH, REC_CHECK_PROMPT = 2, 256  # the float32 recurrence check
+ZAMBA_CHECK_LAYERS = 7  # zamba2-7b's depth in the check: one group of 6 and one more
+REC_CHECK_TOL = 1e-3  # of the largest logit: float32 sums in other orders
 GATE_TIMEOUT_S = 600
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
@@ -772,30 +810,41 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
     elif name == "flash_attention":
         q, k, v = args
         causal, scale = kwargs["causal"], kwargs["scale"]
-        plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)  # noqa: E731
+        window = kwargs.get("window", 0)
+        plain = lambda: ref.flash_attention_ref(  # noqa: E731
+            q, k, v, causal=causal, scale=scale, window=window)
         got, want = kern(*args, **kwargs), plain()
         err = check_attention(got, want, name)
         B, Sq, H, D = q.shape
         Skv, KH = k.shape[1], k.shape[2]
+        off = Skv - Sq
+
+        def kept(i: int) -> int:  # query i's keys under the causal mask and window
+            lo = max(0, i + off - window + 1) if window > 0 else 0
+            return max(0, (min(Skv, i + off + 1) if causal else Skv) - lo)
+
         # (query, key) pairs under the mask: what this call needs
-        pairs = (sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq)) if causal
-                 else Sq * Skv)
+        pairs = sum(kept(i) for i in range(Sq))
         ops_ = 4 * B * H * pairs * D  # q.k and p.v, a multiply and an add each
         moved = nbytes(q, k, v, got)
         rate = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
         mask = None
-        if causal:
+        if causal or window > 0:
             ar = torch.arange(Skv, device=q.device)
-            mask = ar[:Sq, None] + (Skv - Sq) >= ar[None, :]
+            qp, kp = ar[:Sq, None] + off, ar[None, :]
+            mask = qp >= kp if causal else torch.ones_like(qp >= kp)
+            if window > 0:
+                mask = mask & (kp > qp - window)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library = {"boolean mask": lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
                                                 enable_gqa=True)}
-        if causal and Sq == Skv:
+        if causal and Sq == Skv and (window == 0 or window >= Skv):
             library["is_causal"] = lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale,
                                                 enable_gqa=True)
 
-        shape = f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} {str(q.dtype)[6:]}"
+        shape = (f"B={B} Sq={Sq} Skv={Skv} H={H} KH={KH} D={D} {str(q.dtype)[6:]}"
+                 + (f" window={window}" if window else ""))
     elif name == "decode_attention":
         q, kc, vc, lengths = args
         scale = kwargs["scale"]
@@ -950,17 +999,29 @@ def report_site(name: str, label: str, row: dict) -> None:
           + (f" (fastest: {row['library']})" if row["library"] else ""), flush=True)
 
 
+SITE_KEYS = ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library")
+
+
+def site_entry(label: str, row: dict) -> dict:
+    """One site for the kernel line's ``sites`` list."""
+    return {"label": label, **{k: row[k] for k in SITE_KEYS}}
+
+
 def parity_phase(calls, extra) -> dict[str, dict]:
     """Every call site the warm-up recorded; per kernel, the row for its
-    largest site (max_abs_err is the largest over all its sites). The
-    ``extra`` sites are held and timed too, and count in max_abs_err, but
-    give no kernel's row: that is the main path's."""
+    largest site (max_abs_err is the largest over all its sites), with every
+    site in its ``sites`` list. The ``extra`` sites are held and timed too,
+    and count in max_abs_err, but give no kernel's row: that is the main
+    path's."""
     rows: dict[str, dict] = {}
+    sites_of: dict[str, list] = {name: [] for name in KERNELS}
     sites = [(*c, False) for c in calls] + [(*c, True) for c in extra]
     for name, label, args, kwargs, is_extra in sites:
         row = parity_site(name, args, kwargs,
                           dyadic=label.startswith(("dashboard", "dyadic")))
         report_site(name, label, row)
+        sites_of[name].append(site_entry(label, row))
         best = rows.get(name)
         if best is not None and is_extra:
             best["max_abs_err"] = max(row["max_abs_err"], best["max_abs_err"])
@@ -971,6 +1032,8 @@ def parity_phase(calls, extra) -> dict[str, dict]:
         else:
             best["max_abs_err"] = max(row["max_abs_err"], best["max_abs_err"])
     check(sorted(rows) == sorted(KERNELS), f"kernels reached: {sorted(rows)}")
+    for name, row in rows.items():
+        row["sites"] = sites_of[name]
     return rows
 
 
@@ -1144,8 +1207,8 @@ def plain_attention():
 
     module = import_module(KERNELS["flash_attention"][0])
     saved = module.flash_attention, module.decode_attention
-    module.flash_attention = lambda q, k, v, *, causal, scale: ref.flash_attention_ref(
-        q, k, v, causal=causal, scale=scale)
+    module.flash_attention = lambda q, k, v, *, causal, scale, window=0: (
+        ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, window=window))
     module.decode_attention = lambda q, kc, vc, lengths, *, scale: ref.decode_attention_ref(
         q, kc, vc, lengths, scale=scale)
     try:
@@ -2701,6 +2764,7 @@ def moe_phase(dev, smi: str, rows: dict) -> dict[str, int]:
         row = parity_site(name, args, kwargs, dyadic=False)
         report_site(name, f"{MOE_ARCH} {label}", row)
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+        rows[name]["sites"].append(site_entry(f"{MOE_ARCH} {label}", row))
     del rec
     moe_routing(model, params, requests, dev)
     lm_counts = serve_counted(model, params, requests, dev,
@@ -2708,6 +2772,301 @@ def moe_phase(dev, smi: str, rows: dict) -> dict[str, int]:
     print(f"{MOE_ARCH} [{smi}]: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return lm_counts
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: xlstm-350m (ssm) and zamba2-7b (hybrid)
+# ---------------------------------------------------------------------------
+
+
+class GreedyDecode:
+    """Greedy decoding through ``model.decode``, one step at a time: the
+    step, its argmax written into the token buffer and the lengths advanced,
+    the caches updated in place by the model. :meth:`capture` records one
+    step as a CUDA graph through ``repro_torch.exec.capture.record`` (the
+    port's ``jax.jit`` of the reference's decode step), whose replays then
+    advance the same buffers."""
+
+    def __init__(self, model, params, tokens, lengths: int, caches):
+        self.model, self.params, self.caches = model, params, caches
+        self.tokens = tokens.to(torch.int32).clone()
+        self.lengths = torch.full_like(self.tokens, lengths)
+        self.host_lengths = lengths  # every sequence at one length
+        self.graph = None
+        self.launches: dict[str, int] = {}
+        self.graph_bytes = 0
+
+    def _step(self) -> torch.Tensor:
+        logits, _ = self.model.decode(
+            self.params, {"tokens": self.tokens, "lengths": self.lengths}, self.caches)
+        self.tokens.copy_(logits.argmax(-1).to(torch.int32))
+        self.lengths.add_(1)
+        return logits
+
+    def capture(self, dev) -> None:
+        """Record one step; the warm-up step that ``record`` runs first is
+        undone (the caches, tokens and lengths put back), so the first
+        replay is the next step. The decode kernel cannot read the lengths
+        inside a graph: :meth:`step` checks the host's copy before each
+        replay."""
+        from repro_torch.exec import capture
+        from repro_torch.kernels.attention import lengths_checked
+
+        saved = [t.clone() for t in (*self.caches, self.tokens, self.lengths)]
+
+        def step():
+            with lengths_checked():
+                return self._step()
+
+        self.graph, self.logits, self.launches, pool = capture.record(step, dev)
+        for t, s in zip((*self.caches, self.tokens, self.lengths), saved):
+            t.copy_(s)
+        self.graph_bytes = pool
+
+    def step(self) -> torch.Tensor:
+        """One step: eager, or a replay of the captured one (its launches
+        counted as the engine counts its tick's). Returns the logits (the
+        graph's buffer when captured)."""
+        from repro_torch.kernels import _build
+
+        if self.graph is None:
+            logits = self._step()
+        else:
+            # the graph's decode attends min(lengths + 1, ring rows): in
+            # [1, rows] for every length >= 0
+            check(self.host_lengths >= 0, f"decode lengths {self.host_lengths}")
+            self.graph.replay()
+            for name, n in self.launches.items():
+                _build.launched(name, n)
+            logits = self.logits
+        self.host_lengths += 1
+        return logits
+
+
+def decode_run(dec: GreedyDecode, steps: int) -> dict:
+    """``steps`` greedy steps, each timed as a tick (the step and its
+    tokens back on the host); every step's logits and tokens kept."""
+    logits, tokens, ticks = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg = dec.step()
+        tok = dec.tokens.cpu()
+        ticks.append(1e3 * (time.perf_counter() - t))
+        logits.append(lg.clone())
+        tokens.append(tok)
+    return {"logits": logits, "tokens": tokens, "ticks_ms": ticks}
+
+
+def build_recurrent(arch: str, dev, **replace):
+    """``arch`` at its published width (``replace`` cuts depth or changes
+    the dtype for the recurrence check), random weights drawn on the card
+    from a seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), **replace)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(REC_SEED), device=dev)
+    torch.cuda.synchronize()
+    held = sum(t.numel() for t in model.leaves.values())
+    print(f"{arch}{' ' + json.dumps(replace) if replace else ''}: {held} parameters "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    return model, params
+
+
+def timed_prefill(model, params, tokens) -> tuple[torch.Tensor, tuple, float]:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return logits, caches, 1e3 * (time.perf_counter() - t)
+
+
+def profile_card(run, n: int, unprofiled_ms: float, label: str) -> float:
+    """``n`` calls of ``run`` under torch.profiler: the card's busy time a
+    call (the sum of its kernels: one stream) against ``unprofiled_ms``, the
+    call's time measured without the profiler (which slows the host).
+    Prints the top kernels; returns the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kernels = device_ms_by_kernel(prof)
+    busy = sum(ms for _, ms in kernels.values()) / n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    idle = 1 - busy / unprofiled_ms
+    print(f"profile {label}: card busy {busy!r} ms of the unprofiled {unprofiled_ms!r} ms: "
+          f"idle share {idle!r}; {sum(c for c, _ in kernels.values()) / n:g} kernels; top "
+          "(launches, ms a call): "
+          + "; ".join(f"{k[:60]} ({c / n:g}, {ms / n:.4f})" for k, (c, ms) in top),
+          flush=True)
+    return idle
+
+
+def serve_recurrent(model, params, dev, smi: str, long_prompt: bool) -> dict:
+    """The Model API at full width: 16 prompts of 512 tokens prefilled
+    (zeroed state, as the reference's prefill), then 64 greedy decode steps
+    eagerly and 64 with each step one captured CUDA graph, both from the
+    prefill's caches; and, with ``long_prompt``, one prefill of a single
+    8,192-token prompt. Counts zeroed before, read after. Captured steps
+    must equal the eager ones bit for bit (tokens, logits, final state)."""
+    arch = model.cfg.name
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(REC_SEED + 1)
+    tokens = torch.tensor(rng.integers(0, V, size=(REC_BATCH, REC_PROMPT)),
+                          dtype=torch.int32, device=dev)
+    long_prompt_tokens = torch.tensor(rng.integers(0, V, size=(1, REC_LONG)),
+                                      dtype=torch.int32, device=dev)
+    zero_counts()
+    logits, caches, prefill_ms = timed_prefill(model, params, tokens)
+    check(bool(torch.isfinite(logits[:, :V]).all()), f"{arch}: prefill logits")
+    first = logits.argmax(-1)
+    runs = {}
+    for mode in ("eager", "captured"):
+        dec = GreedyDecode(model, params, first, REC_PROMPT, tuple(c.clone() for c in caches))
+        if mode == "captured":
+            dec.capture(dev)
+        runs[mode] = (dec, decode_run(dec, REC_STEPS))
+    long_ms = None
+    if long_prompt:
+        long_logits, _, long_ms = timed_prefill(model, params, long_prompt_tokens)
+        check(bool(torch.isfinite(long_logits).all()), f"{arch}: long prefill logits")
+    counts = read_counts()
+    (eager, e), (capt, c) = runs["eager"], runs["captured"]
+    for step, (a, b) in enumerate(zip(e["logits"], c["logits"])):
+        check(bool(torch.isfinite(a[:, :V]).all()), f"{arch}: decode step {step} logits")
+        check(torch.equal(a, b), f"{arch}: captured step {step}'s logits differ from eager")
+    check(all(torch.equal(a, b) for a, b in zip(e["tokens"], c["tokens"])),
+          f"{arch}: captured tokens differ from eager")
+    check(all(torch.equal(a, b) for a, b in zip(eager.caches, capt.caches)),
+          f"{arch}: the captured run's final state differs from the eager run's")
+    stats = {"prefill_ms": prefill_ms, "batch": REC_BATCH, "prompt": REC_PROMPT,
+             "steps": REC_STEPS, "long_prefill_ms": long_ms,
+             "long_prefill_tokens": REC_LONG if long_prompt else None}
+    for mode, (_, r) in runs.items():
+        wall_s = sum(r["ticks_ms"]) / 1e3
+        stats[f"tick_ms_{mode}_median"] = float(np.median(r["ticks_ms"]))
+        stats[f"tick_ms_{mode}_p90"] = float(np.percentile(r["ticks_ms"], 90))
+        stats[f"tokens_per_s_{mode}"] = REC_BATCH * REC_STEPS / wall_s
+    stats["graph_bytes"] = capt.graph_bytes
+    stats["gib_allocated"] = torch.cuda.memory_allocated() / 2**30
+    stats["gib_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches of the {arch} run: {counts}; captured steps equal eager bit for bit "
+          f"(tokens, logits, final state) over {REC_STEPS} steps", flush=True)
+    stats["idle_share_captured"] = profile_card(capt.step, 4, stats["tick_ms_captured_median"],
+                                                f"{arch}, a captured decode step")
+    stats["idle_share_eager"] = profile_card(eager.step, 4, stats["tick_ms_eager_median"],
+                                             f"{arch}, an eager decode step")
+    stats["idle_share_prefill"] = profile_card(
+        lambda: model.prefill(params, {"tokens": tokens}), 1, prefill_ms,
+        f"{arch}, the {REC_BATCH} x {REC_PROMPT} prefill")
+    print(f"recurrent serving {arch} [{smi}]:", json.dumps(stats), flush=True)
+    return counts
+
+
+def recurrence_check(arch: str, dev, **replace) -> float:
+    """Float32: a prompt of ``REC_CHECK_PROMPT`` tokens prefilled, and the
+    same prompt decoded one token at a time from the zeroed caches of a
+    prefill of that length (the hybrid's K/V ring of that many rows); the
+    last-token logits must agree within ``REC_CHECK_TOL`` of their largest
+    magnitude. The chunked SSD, the mLSTM normaliser, the causal conv
+    against the conv buffer and windowed prefill attention against
+    ring-buffer decode attention compute one function each."""
+    model, params = build_recurrent(arch, dev, dtype="float32", **replace)
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(REC_SEED + 2)
+    toks = torch.tensor(rng.integers(0, V, size=(REC_CHECK_BATCH, REC_CHECK_PROMPT)),
+                        dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    want, caches = model.prefill(params, {"tokens": toks})
+    for t in range(REC_CHECK_PROMPT):
+        lengths = torch.full((REC_CHECK_BATCH,), t, dtype=torch.int32, device=dev)
+        got, caches = model.decode(params, {"tokens": toks[:, t], "lengths": lengths}, caches)
+    torch.cuda.synchronize()
+    err = float((got[:, :V] - want[:, :V]).abs().max())
+    scale = float(want[:, :V].abs().max())
+    print(f"recurrence {arch} float32 {json.dumps(replace)}: prefill of {REC_CHECK_PROMPT} "
+          f"tokens vs {REC_CHECK_PROMPT} decode steps from zero state in "
+          f"{time.perf_counter() - t0:.2f} s: last logits max_abs_err={err!r} (largest "
+          f"logit {scale!r}, tolerance {REC_CHECK_TOL} x that)", flush=True)
+    check(np.isfinite(err) and err <= REC_CHECK_TOL * max(scale, 1.0),
+          f"{arch}: prefill and step-by-step decode disagree by {err}")
+    return err
+
+
+def recurrent_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """xlstm-350m and zamba2-7b at their published widths and depths, bf16,
+    through ``build_model`` → ``init`` → ``prefill`` → ``decode``
+    (``serve_recurrent``); zamba2-7b's attention sites recorded in an eager
+    warm-up (its 16 x 512 prefill, one decode step and the 8,192-token
+    prefill) and each held against its plain version and timed; then the
+    float32 recurrence checks (xlstm at full depth, zamba2 at 7 layers).
+    Returns the counted runs' launches."""
+    from repro_torch.exec import capture
+
+    counts = dict.fromkeys(KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    model, params = build_recurrent(XLSTM_ARCH, dev)
+    cfg = model.cfg
+    check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.slstm_every,
+           cfg.vocab_size) == ("ssm", "bfloat16", 24, 1024, 4, 8, 50304), cfg)
+    got = serve_recurrent(model, params, dev, smi, long_prompt=False)
+    check(not any(got.values()), f"the xlstm path launched a kernel: {got}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params = build_recurrent(ZAMBA_ARCH, dev)
+    cfg = model.cfg
+    check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.ssm_heads, cfg.d_inner,
+           cfg.ssm_state, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.sliding_window,
+           cfg.attn_every) == ("hybrid", "bfloat16", 81, 3584, 112, 7168, 64, 32, 32, 112,
+                               14336, 4096, 6), cfg)
+    ng = cfg.n_layers // cfg.attn_every
+    rng = np.random.default_rng(REC_SEED + 3)
+    with Recorder() as rec, capture.disabled():
+        rec.label = f"{ZAMBA_ARCH} prefill"
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, size=(REC_BATCH, REC_PROMPT)),
+                            dtype=torch.int32, device=dev)
+        logits, caches = model.prefill(params, {"tokens": toks})
+        rec.label = f"{ZAMBA_ARCH} decode"
+        GreedyDecode(model, params, logits.argmax(-1), REC_PROMPT, caches).step()
+        rec.label = f"{ZAMBA_ARCH} prefill, one long prompt"
+        model.prefill(params, {"tokens": toks[:1].repeat(1, REC_LONG // REC_PROMPT)})
+    del logits, caches
+    check(sorted({c[0] for c in rec.calls}) == sorted(ATTENTION),
+          f"kernels reached: {sorted({c[0] for c in rec.calls})}")
+    for name, label, args, kwargs in rec.calls:
+        row = parity_site(name, args, kwargs, dyadic=False)
+        report_site(name, label, row)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+        rows[name]["sites"].append(site_entry(label, row))
+    del rec
+    got = serve_recurrent(model, params, dev, smi, long_prompt=True)
+    check(got["flash_attention"] == 2 * ng
+          and got["decode_attention"] == ng * (2 * REC_STEPS + 1)
+          and all(got[n] == 0 for n in KERNELS if n not in ATTENTION),
+          f"{ZAMBA_ARCH} launches {got}: want {ng} flash_attention a prefill and {ng} "
+          f"decode_attention a step (the capture's warm-up step too)")
+    for name in KERNELS:
+        counts[name] += got[name]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    recurrence_check(XLSTM_ARCH, dev)
+    recurrence_check(ZAMBA_ARCH, dev, n_layers=ZAMBA_CHECK_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2855,6 +3214,14 @@ def main() -> int:
     for name in ATTENTION:
         counts[name] += moe_counts[name]
     mark("moe serving phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{MOE_ARCH} freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    recurrent = recurrent_phase(dev, smi, rows)
+    for name in KERNELS:
+        counts[name] += recurrent[name]
+    mark("recurrent phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -2865,6 +3232,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "cold_ms": row["cold_ms"], "library": row["library"], "shape": row["shape"],
+            "sites": row["sites"],
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": table}), flush=True)

@@ -51,12 +51,12 @@ SIGNATURES: dict[str, list] = {
     "raven_segment_agg": [
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P,
     ],
-    # q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal, stream
+    # q, k, v, out, B, Sq, Skv, H, KH, D, scale, causal, window, stream
     "raven_flash_attention_f32": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
     ],
     "raven_flash_attention_bf16": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P,
     ],
     # q, k_cache, v_cache, lengths, out, scratch, dtype, B, S, H, KH, D, scale,
     # n_split, chunk, stream

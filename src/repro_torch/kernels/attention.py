@@ -50,10 +50,12 @@ def _check_operands(name: str, operands) -> None:
         raise ValueError(f"{name}: head dim {D} must be a multiple of 8 in [8, {D_MAX}]")
 
 
-def flash_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool, scale: float, window: int = 0) -> torch.Tensor:
     """q:(B,Sq,H,D); k,v:(B,Skv,KH,D), H % KH == 0; one CUDA device,
     contiguous, one dtype. Returns (B,Sq,H,D) in q's dtype. The causal mask
-    keeps key j for query i where i + (Skv - Sq) >= j, so Sq <= Skv."""
+    keeps key j for query i where i + (Skv - Sq) >= j, so Sq <= Skv; a
+    ``window`` > 0 keeps only keys j > i + (Skv - Sq) - window. A window of
+    Skv or more masks nothing and runs as none (0)."""
     _check_operands("flash_attention", ((q, "q", 4), (k, "k", 4), (v, "v", 4)))
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
@@ -64,6 +66,9 @@ def flash_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
         raise ValueError(f"flash_attention: {H} query heads over {KH} KV heads")
     if Skv < 1 or (causal and Sq > Skv):
         raise ValueError(f"flash_attention: Sq={Sq}, Skv={Skv}: every query needs a key")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} must be >= 0 (0: none)")
+    window = 0 if window >= Skv else int(window)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -71,7 +76,8 @@ def flash_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = getattr(_build.lib(), _FLASH[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KH, D, float(scale), int(bool(causal)), _build.stream_ptr(dev),
+            B, Sq, Skv, H, KH, D, float(scale), int(bool(causal)), window,
+            _build.stream_ptr(dev),
         )
     _build.check("flash_attention", err)
     _build.launched("flash_attention")

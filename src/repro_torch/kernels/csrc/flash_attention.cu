@@ -1,5 +1,5 @@
-// flash_attention for float32: online-softmax attention with GQA and a
-// causal mask offset by Skv - Sq, on CUDA cores.
+// flash_attention for float32: online-softmax attention with GQA, a causal
+// mask offset by Skv - Sq and an optional sliding window, on CUDA cores.
 //
 // Replaces the Pallas kernel `flash_attention` of
 // src/repro/kernels/flash_attention.py:63 (pallas_call at line 83) for
@@ -22,8 +22,11 @@
 // tile is read once and each K/V tile once per block, so K/V are read
 // Sq / BQ times per head and G times per KV head. Tiles wholly above the
 // causal diagonal are skipped; ragged Sq and Skv are masked (rows past Sq
-// are not written, keys past Skv get no weight). Query head h reads KV head
-// h / G. Head dims up to 128 that are a multiple of 8 are taken.
+// are not written, keys past Skv get no weight). A sliding window (query i
+// keeps key j only if j > i + Skv - Sq - window; 0 is none) starts the K/V
+// loop at the first tile the block's first row reaches and masks the keys
+// below each row's window. Query head h reads KV head h / G. Head dims up
+// to 128 that are a multiple of 8 are taken.
 #include "attention.cuh"
 
 namespace {
@@ -44,7 +47,8 @@ using T = float;
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Skv, int H, int KH, int D, float scale, int causal) {
+                       int Skv, int H, int KH, int D, float scale, int causal,
+                       int window) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // BQ x QS, q * scale
   float* sK = sQ + BQ * QS;                     // BK x KS
@@ -92,7 +96,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+  const int kv_begin = window > 0 ? max(0, q0 + off - window + 1) / BK * BK : 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BK) {
     __syncthreads();  // the last tile's readers are done
     for (int i = tid; i < BK * n8; i += THREADS) {
       const int r = i / n8, c = (i % n8) * 8;
@@ -136,7 +141,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
         const int kp = kv0 + c;
-        const bool ok = kp < Skv && (!causal || q0 + r + off >= kp);
+        const bool ok = kp < Skv && (!causal || q0 + r + off >= kp) &&
+                        (window <= 0 || kp > q0 + r + off - window);
         sP[r * PS + c] = ok ? s[i][j] : NEG_INF;
       }
     __syncthreads();
@@ -207,16 +213,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }  // namespace
 
 // q, out: (B, Sq, H, D) float32; k, v: (B, Skv, KH, D) float32; contiguous,
-// 16-byte aligned; D % 8 == 0, D <= 128, H % KH == 0.
+// 16-byte aligned; D % 8 == 0, D <= 128, H % KH == 0; window >= 0 (0: none).
 extern "C" int raven_flash_attention_f32(const void* q, const void* k, const void* v,
                                          void* out, int B, int Sq, int Skv, int H, int KH,
-                                         int D, float scale, int causal, void* stream) {
+                                         int D, float scale, int causal, int window,
+                                         void* stream) {
   static unsigned long long done = 0;
   const cudaError_t attr = raven_smem_limit(flash_attention_kernel, SMEM_BYTES, &done);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, KH, D, scale, causal);
+      static_cast<T*>(out), Sq, Skv, H, KH, D, scale, causal, window);
   RAVEN_RETURN_LAUNCH_STATUS();
 }

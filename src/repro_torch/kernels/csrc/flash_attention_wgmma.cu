@@ -1,5 +1,6 @@
 // flash_attention for bfloat16 on Hopper's tensor cores: online-softmax
-// attention with GQA and a causal mask offset by Skv - Sq.
+// attention with GQA, a causal mask offset by Skv - Sq and an optional
+// sliding window.
 //
 // Replaces the Pallas kernel `flash_attention` of
 // src/repro/kernels/flash_attention.py:63 (pallas_call at line 83) for
@@ -37,6 +38,11 @@
 // causal mask is applied only on tiles that cross the diagonal, ragged Sq
 // and Skv on the last tiles; tiles wholly above the diagonal are not
 // loaded, and a warpgroup skips a loaded tile wholly above its own rows.
+// A sliding window (the reference's `_mask`: query i keeps key j only if
+// j > i + Skv - Sq - window; 0 is none) is masked on the tiles that cross
+// its lower edge; the K/V loop starts at the first tile the block's window
+// reaches, so tiles wholly below it are neither loaded nor computed, and a
+// warpgroup skips a loaded tile wholly below its own rows' windows.
 // The grid runs the longest causal tiles first (query tiles in reverse
 // order as the slowest grid axis), with the G query heads of one KV head in
 // neighbouring blocks so their K/V re-reads hit L2.
@@ -83,7 +89,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long lo
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                             int Skv, int H, int KH, int D, float scale_log2, int causal) {
+                             int Skv, int H, int KH, int D, float scale_log2, int causal,
+                             int window) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sKV = sQ + TILE_Q;  // stage s: K at sKV + 2 s TILE_KV, V after it
@@ -105,6 +112,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   int kv_end = Skv;
   if (causal) kv_end = min(Skv, min(q0 + BM, Sq) + off);
   const int n_tiles = (kv_end + BN - 1) / BN;
+  // the first tile holding a key of the block's first row's window
+  const int first_tile = window > 0 ? max(0, q0 + off - window + 1) / BN : 0;
 
   auto load_kv = [&](int j) {
     const uint32_t sK = sKV + (j % STAGES) * 2 * TILE_KV;
@@ -113,7 +122,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     load_tile(sK + TILE_KV, vb + kv0 * kv_step, kv_step, BN, Skv - kv0, D, tid);
   };
   load_tile(sQ, qb + q0 * q_step, q_step, BM, Sq - q0, D, tid);
-  load_kv(0);
+  load_kv(first_tile);
   cp_async_commit();
 
   float o[64];
@@ -121,7 +130,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   for (int i = 0; i < 64; ++i) o[i] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = first_tile; j < n_tiles; ++j) {
     cp_async_wait<0>();  // tile j (and the Q tile) have landed
     fence_async_shared();
     __syncthreads();  // for every thread; and every warpgroup is done with tile j - 1
@@ -130,7 +139,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
     const int kv0 = j * BN;
     const uint32_t sK = sKV + (j % STAGES) * 2 * TILE_KV, sV = sK + TILE_KV;
-    if (!causal || kv0 <= wg_first + 63 + off) {
+    if ((!causal || kv0 <= wg_first + 63 + off) &&
+        (window <= 0 || kv0 + BN - 1 > wg_first + off - window)) {
       float s[32];
       wgmma_fence();
 #pragma unroll
@@ -145,12 +155,15 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
-      if (kv0 + BN > Skv || (causal && kv0 + BN - 1 > wg_first + off)) {
+      if (kv0 + BN > Skv || (causal && kv0 + BN - 1 > wg_first + off) ||
+          (window > 0 && kv0 <= wg_first + 63 + off - window)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int col = kv0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
           const int row = row0 + 8 * ((i / 2) % 2);
-          if (col >= Skv || (causal && col > row + off)) s[i] = NEG_INF;
+          if (col >= Skv || (causal && col > row + off) ||
+              (window > 0 && col <= row + off - window))
+            s[i] = NEG_INF;
         }
       }
 
@@ -231,16 +244,18 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 }  // namespace
 
 // q, out: (B, Sq, H, D) bf16; k, v: (B, Skv, KH, D) bf16; contiguous,
-// 16-byte aligned; D % 8 == 0, D <= 128, H % KH == 0.
+// 16-byte aligned; D % 8 == 0, D <= 128, H % KH == 0; window >= 0 (0: none).
 extern "C" int raven_flash_attention_bf16(const void* q, const void* k, const void* v,
                                           void* out, int B, int Sq, int Skv, int H, int KH,
-                                          int D, float scale, int causal, void* stream) {
+                                          int D, float scale, int causal, int window,
+                                          void* stream) {
   static unsigned long long done = 0;
   const cudaError_t attr = raven_smem_limit(flash_attention_wgmma_kernel, SMEM_BYTES, &done);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(H, B, (Sq + BM - 1) / BM);
   flash_attention_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Sq, Skv, H, KH, D, scale * 1.4426950408889634f, causal);
+      static_cast<bf16*>(out), Sq, Skv, H, KH, D, scale * 1.4426950408889634f, causal,
+      window);
   RAVEN_RETURN_LAUNCH_STATUS();
 }

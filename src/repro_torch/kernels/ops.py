@@ -198,16 +198,20 @@ def segment_agg_op(vals, w, sid, *, num_segments: int):
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = None):
+def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = None,
+                       window: int = 0):
     """q:(B,Sq,H,D); k,v:(B,Skv,KH,D), H % KH == 0 → (B,Sq,H,D) in q's
-    dtype, float32 sums. The causal mask is offset by Skv − Sq."""
+    dtype, float32 sums. The causal mask is offset by Skv − Sq; ``window``
+    > 0 keeps only the ``window`` latest keys of each query's position."""
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} must be >= 0 (0: none)")
     if _route(q, "flash_attention"):
         from repro_torch.kernels.attention import flash_attention
 
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, scale=scale)
-    return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+                               causal=causal, scale=scale, window=window)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def decode_attention_op(q, k_cache, v_cache, lengths, *, scale: float | None = None):

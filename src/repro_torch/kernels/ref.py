@@ -93,11 +93,15 @@ def segment_agg_ref(vals, w, sid, *, num_segments):
     return counts, sums, mins, maxs
 
 
-def flash_attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
+def flash_attention_ref(q, k, v, causal: bool = True, scale: float | None = None,
+                        window: int = 0):
     """Full-softmax attention oracle. q:(B,Sq,H,D) k,v:(B,Skv,KH,D) with GQA
-    (H % KH == 0). Returns (B,Sq,H,D)."""
+    (H % KH == 0). Query i sits at position i + Skv - Sq; with ``causal`` it
+    keeps key j iff j <= i + Skv - Sq, and with ``window`` > 0 only keys
+    j > i + Skv - Sq - window (the reference's ``_mask``). Returns
+    (B,Sq,H,D)."""
     B, Sq, H, D = q.shape
-    KH = k.shape[2]
+    Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
     qf = q.to(torch.float32) * scale
@@ -105,10 +109,13 @@ def flash_attention_ref(q, k, v, causal: bool = True, scale: float | None = None
     vf = v.to(torch.float32)
     qg = qf.reshape(B, Sq, KH, G, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
-    if causal:
-        Skv = k.shape[1]
+    if causal or window > 0:
         ar = lambda n: torch.arange(n, device=q.device)  # noqa: E731
-        mask = ar(Sq)[:, None] + (Skv - Sq) >= ar(Skv)[None, :]
+        qp, kp = ar(Sq)[:, None] + (Skv - Sq), ar(Skv)[None, :]
+        mask = kp <= qp if causal else torch.ones((Sq, Skv), dtype=torch.bool,
+                                                  device=q.device)
+        if window > 0:
+            mask = mask & (kp > qp - window)
         logits = torch.where(mask[None, None, None], logits, -torch.inf)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)

@@ -1,10 +1,13 @@
 """Carry parameters from the reference package's layout into the port.
 
 Both packages keep an LM's parameters as the same nested dict (stacked
-per-layer leaves, weights as (in, out)), so a conversion is a leaf-by-leaf
-copy. The input is that tree with numpy arrays for leaves (``np.asarray`` of
-each reference leaf; bfloat16 arrives as the ``ml_dtypes`` type, whose bits
-are taken as they are).
+per-layer leaves under ``layers``, or xlstm's ``mlayers`` and ``slayers``;
+zamba2's ``shared`` block; weights as (in, out)), so a conversion is a
+leaf-by-leaf copy that keeps each leaf's dtype: a bfloat16 model's float32
+leaves (Mamba2's ``a_log`` and ``dt_bias``) stay float32. The input is that
+tree with numpy arrays for leaves (``np.asarray`` of each reference leaf;
+bfloat16 arrives as the ``ml_dtypes`` type, whose bits are taken as they
+are).
 """
 from __future__ import annotations
 

@@ -23,9 +23,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
 
-_WINDOW_TODO = (
-    "sliding-window attention comes with the hybrid family (ROADMAP Queue 1 "
-    "item 10): the attention kernels take no window"
+_DECODE_WINDOW_TODO = (
+    "a sliding window in decode attention: no config reaches it (zamba2's "
+    "decode keeps a ring buffer of window rows and passes none); the decode "
+    "kernel takes no window (ROADMAP Queue 1 item 10)"
 )
 
 
@@ -67,20 +68,20 @@ def attention_chunked(
     """Online-softmax attention on the flash-attention kernel.
 
     q: (B,Sq,H,D); k,v: (B,Skv,KH,D); GQA via H % KH == 0.
-    q_offset: global position of q[0]. The kernel's causal mask puts q[0] at
-    Skv − Sq, so a causal call needs q_offset == Skv − Sq (0 for a prefill
-    over the whole sequence). The reference's chunk sizes tile its XLA
-    loops; the kernel tiles itself, so they have no counterpart.
+    q_offset: global position of q[0]. The kernel's causal mask and window
+    put q[0] at Skv − Sq, so a causal or windowed call needs q_offset ==
+    Skv − Sq (0 for a prefill over the whole sequence). ``window`` > 0 keeps
+    key j for query i only if j > i + q_offset − window (the reference's
+    ``_mask``). The reference's chunk sizes tile its XLA loops; the kernel
+    tiles itself, so they have no counterpart.
     """
-    if window > 0:
-        raise NotImplementedError(_WINDOW_TODO)
     Sq, Skv = q.shape[1], k.shape[1]
-    if causal and q_offset != Skv - Sq:
+    if (causal or window > 0) and q_offset != Skv - Sq:
         raise NotImplementedError(
-            f"causal attention with q_offset={q_offset} over Sq={Sq}, Skv={Skv}: "
-            "the kernel's mask is offset by Skv - Sq"
+            f"causal or windowed attention with q_offset={q_offset} over Sq={Sq}, "
+            f"Skv={Skv}: the kernel's mask is offset by Skv - Sq"
         )
-    return flash_attention_op(q, k, v, causal=causal, scale=scale)
+    return flash_attention_op(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def attention_decode(
@@ -98,7 +99,7 @@ def attention_decode(
     The kernel reads the caches in their storage type, sums in float32 and
     stops at each sequence's length."""
     if window > 0:
-        raise NotImplementedError(_WINDOW_TODO)
+        raise NotImplementedError(_DECODE_WINDOW_TODO)
     return decode_attention_op(q, k_cache, v_cache, lengths, scale=scale)
 
 

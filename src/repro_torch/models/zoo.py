@@ -1,5 +1,5 @@
-"""Model zoo: the decoder LMs of the reference's zoo (dense and moe), on
-PyTorch.
+"""Model zoo: the reference zoo's decoder LMs (dense and moe) and its two
+recurrent families (ssm: xlstm; hybrid: zamba2), on PyTorch.
 
 Every model exposes the reference's surface for serving:
 
@@ -8,9 +8,21 @@ Every model exposes the reference's surface for serving:
   prefill  — full-prompt forward → (last logits, caches)
   decode   — one-token step over caches → (logits, caches)
 
-``build_model`` builds the ``dense`` and ``moe`` families. The ``vlm``,
-``encdec``, ``ssm`` and ``hybrid`` families, and training (``loss``), are
-ROADMAP Queue 1 item 10 and raise until they are ported.
+Family notes:
+  xlstm   grouped stacks: (slstm_every-1) mLSTM + 1 sLSTM per group.
+  zamba2  Mamba2 stack with ONE shared attention+MLP block applied after
+          every ``attn_every`` SSM layers (weight sharing), sliding-window
+          attention in the prefill and a ring-buffer KV cache of
+          min(S, window) rows in decode.
+As in the reference, the two recurrent prefills run the full forward and
+return the last logits with *zeroed* state and caches ("dry-run
+sufficient"), so a decode after a prefill starts from zero state. Decode
+writes the new state and K/V rows into the caches it is given, in place,
+and returns them (the reference returns new arrays).
+
+``build_model`` builds the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families. The ``vlm`` and ``encdec`` families, and training (``loss``),
+are ROADMAP Queue 1 item 10 and raise until they are ported.
 """
 from __future__ import annotations
 
@@ -19,16 +31,22 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import (
+    attn_param_shapes,
     decoder_decode_step,
     decoder_layer_shapes,
     decoder_prefill,
     embed_lookup,
+    layer_params,
+    mlp_param_shapes,
     stack_shapes,
 )
 
-_NORMS = ("ln1", "ln2", "final_norm")  # initialised to ones
+_ONES = ("ln1", "ln2", "ln", "ln_x", "final_norm", "d_skip")  # initialised to ones
+_F32_ZEROS = ("dt_bias", "a_log")  # zeros in float32, whatever the dtype (A = -1)
+_STACKS = ("layers", "mlayers", "slayers")  # stacked per-layer trees
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -70,24 +88,27 @@ def _nest(flat: dict) -> dict:
 
 
 class Model(nn.Module):
-    """A decoder LM. Its parameters are a nested dict of tensors in the
-    reference's layout (stacked per-layer leaves under ``layers``); after
-    :meth:`init` the module holds them, one frozen ``nn.Parameter`` a leaf
-    keyed by its path (``layers/attn/wq_col``)."""
+    """An LM of a built family. Its parameters are a nested dict of tensors
+    in the reference's layout (stacked per-layer leaves under ``layers``,
+    or xlstm's ``mlayers`` and ``slayers``); after :meth:`init` the module
+    holds them, one frozen ``nn.Parameter`` a leaf keyed by its path
+    (``layers/attn/wq_col``)."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self.shapes = _lm_shapes(cfg)
+        self._shapes, self._prefill, self._decode = _FAMILIES[cfg.family]
+        self.shapes = self._shapes(cfg)
         self.leaves = nn.ParameterDict()
 
     def init(self, generator: torch.Generator, device=None, dtype=None) -> dict:
         """Draw every leaf on ``device`` (the card unless asked otherwise)
-        from ``generator``, which must live there: norms are ones, the rest
-        normal with the reference's scale, 0.02 or 1/sqrt(fan_in) if that is
-        smaller, cast to ``dtype`` (the config's by default). Stacked leaves
-        are drawn a layer at a time, so no float32 copy of a whole leaf is
-        made. Returns the nested parameter dict."""
+        from ``generator``, which must live there: norms and ``d_skip`` are
+        ones, ``dt_bias`` and ``a_log`` zeros in float32 whatever the dtype,
+        the rest normal with the reference's scale, 0.02 or 1/sqrt(fan_in)
+        if that is smaller, cast to ``dtype`` (the config's by default).
+        Stacked leaves are drawn a layer at a time, so no float32 copy of a
+        whole leaf is made. Returns the nested parameter dict."""
         dev = resolve_device(device)
         if generator.device.type != dev.type:
             raise ValueError(
@@ -99,11 +120,13 @@ class Model(nn.Module):
             name = path.split("/")[-1]
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 0.02 if len(shape) < 2 else min(0.02, (1.0 / fan_in) ** 0.5)
-            if name in _NORMS:
+            if name in _ONES:
                 leaf = torch.ones(shape, dtype=dt, device=dev)
+            elif name in _F32_ZEROS:
+                leaf = torch.zeros(shape, dtype=torch.float32, device=dev)
             else:
                 leaf = torch.empty(shape, dtype=dt, device=dev)
-                parts = leaf if path.startswith("layers/") else leaf[None]
+                parts = leaf if path.split("/")[0] in _STACKS else leaf[None]
                 for part in parts:
                     draw = torch.randn(part.shape, generator=generator,
                                        dtype=torch.float32, device=dev)
@@ -116,10 +139,10 @@ class Model(nn.Module):
         return _nest({k: v.data for k, v in self.leaves.items()})
 
     def prefill(self, params: dict, batch: dict, cache_len: int | None = None):
-        return _lm_prefill(params, batch, self.cfg, cache_len=cache_len)
+        return self._prefill(params, batch, self.cfg, cache_len=cache_len)
 
     def decode(self, params: dict, batch: dict, caches: tuple):
-        return _lm_decode(params, batch, caches, self.cfg)
+        return self._decode(params, batch, caches, self.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -162,20 +185,237 @@ def _lm_decode(params, batch, caches, cfg: ArchConfig):
     return _head(h, params, cfg), caches
 
 
+
+
+# ---------------------------------------------------------------------------
+# xLSTM (ssm family)
+# ---------------------------------------------------------------------------
+
+
+def _xlstm_layout(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(n_groups, mlstm_per_group, n_slstm)."""
+    k = cfg.slstm_every
+    n_groups = cfg.n_layers // k
+    return n_groups, k - 1, n_groups
+
+
+def _xlstm_shapes(cfg: ArchConfig) -> dict:
+    ng, mpg, ns = _xlstm_layout(cfg)
+    m_layer = {"ln": (cfg.d_model,), **S.mlstm_param_shapes(cfg)}
+    s_layer = {"ln": (cfg.d_model,), **S.slstm_param_shapes(cfg)}
+    return {
+        "embed": (_vp(cfg), cfg.d_model),
+        "out_embed": (cfg.d_model, _vp(cfg)),
+        "final_norm": (cfg.d_model,),
+        "mlayers": stack_shapes(m_layer, ng * mpg),
+        "slayers": stack_shapes(s_layer, ns),
+    }
+
+
+def _xlstm_forward(params, h, cfg: ArchConfig):
+    ng, mpg, _ = _xlstm_layout(cfg)
+    for g in range(ng):
+        for j in range(mpg):
+            lp = layer_params(params["mlayers"], g * mpg + j)
+            h = h + S.mlstm_layer(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
+        sl = layer_params(params["slayers"], g)
+        h = h + S.slstm_layer(sl, L.rmsnorm(h, sl["ln"], cfg.norm_eps), cfg)
+    return h
+
+
+def _xlstm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
+    """The full forward and the last logits, with zeroed state (the
+    reference's dry-run-sufficient prefill)."""
+    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    h = _xlstm_forward(params, h, cfg)
+    hl = L.rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
+    return _head(hl, params, cfg), _xlstm_zero_state(cfg, h.shape[0], _dtype(cfg), h.device)
+
+
+def _xlstm_zero_state(cfg: ArchConfig, B: int, dt, device):
+    """(mh, mn, sc, sn, sm, sy): the mLSTM memories and normalisers, the
+    sLSTM cells, normalisers, stabilisers (-30) and last outputs."""
+    ng, mpg, ns = _xlstm_layout(cfg)
+    H = cfg.n_heads
+    P = cfg.d_model // H
+    nm = ng * mpg
+    f32 = dict(dtype=torch.float32, device=device)
+    return (
+        torch.zeros((nm, B * H, 1, P, P), **f32),
+        torch.zeros((nm, B * H, 1, P, 1), **f32),
+        torch.zeros((ns, B, cfg.d_model), **f32),
+        torch.zeros((ns, B, cfg.d_model), **f32),
+        torch.full((ns, B, cfg.d_model), -30.0, **f32),
+        torch.zeros((ns, B, H, P), dtype=dt, device=device),
+    )
+
+
+def _xlstm_decode(params, batch, caches, cfg: ArchConfig):
+    ng, mpg, _ = _xlstm_layout(cfg)
+    mh, mn, sc, sn, sm, sy = caches
+    h = embed_lookup(params["embed"], batch["tokens"][:, None])[:, 0].to(_dtype(cfg))
+    for g in range(ng):
+        for j in range(mpg):
+            i = g * mpg + j
+            lp = layer_params(params["mlayers"], i)
+            y, (h2, n2) = S.mlstm_decode(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps),
+                                         (mh[i], mn[i]), cfg)
+            h = h + y
+            mh[i].copy_(h2)
+            mn[i].copy_(n2)
+        sl = layer_params(params["slayers"], g)
+        y, st = S.slstm_decode(sl, L.rmsnorm(h, sl["ln"], cfg.norm_eps),
+                               (sc[g], sn[g], sm[g], sy[g]), cfg)
+        h = h + y
+        for cache, new in zip((sc, sn, sm, sy), st):
+            cache[g].copy_(new)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _head(h, params, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 (hybrid: Mamba2 stack + ONE shared attention/MLP block)
+# ---------------------------------------------------------------------------
+
+
+def _zamba_layout(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(n_groups, ssm_per_group, remainder)."""
+    k = cfg.attn_every
+    ng = cfg.n_layers // k
+    return ng, k, cfg.n_layers - ng * k
+
+
+def _zamba_shapes(cfg: ArchConfig) -> dict:
+    m_layer = {"ln": (cfg.d_model,), **S.mamba2_param_shapes(cfg)}
+    shared = {
+        "ln1": (cfg.d_model,),
+        "ln2": (cfg.d_model,),
+        "attn": attn_param_shapes(cfg),
+        "mlp": mlp_param_shapes(cfg),
+    }
+    return {
+        "embed": (_vp(cfg), cfg.d_model),
+        "out_embed": (cfg.d_model, _vp(cfg)),
+        "final_norm": (cfg.d_model,),
+        "layers": stack_shapes(m_layer, cfg.n_layers),
+        "shared": shared,
+    }
+
+
+def _mamba_block(params, h, i: int, cfg: ArchConfig):
+    lp = layer_params(params["layers"], i)
+    return h + S.mamba2_layer(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
+
+
+def _zamba_forward(params, h, cfg: ArchConfig, positions):
+    ng, k, rem = _zamba_layout(cfg)
+    sh = params["shared"]
+    for g in range(ng):
+        for j in range(k):
+            h = _mamba_block(params, h, g * k + j, cfg)
+        h = h + L.attn_block(
+            sh["attn"], L.rmsnorm(h, sh["ln1"], cfg.norm_eps), cfg,
+            positions=positions, causal=True, window=cfg.sliding_window,
+        )
+        h = h + L.mlp_block(sh["mlp"], L.rmsnorm(h, sh["ln2"], cfg.norm_eps), cfg)
+    for i in range(ng * k, ng * k + rem):
+        h = _mamba_block(params, h, i, cfg)
+    return h
+
+
+def _zamba_prefill(params, batch, cfg: ArchConfig, cache_len=None):
+    """The full forward and the last logits, with zeroed state and caches
+    of min(S, window) rows (the reference's dry-run-sufficient prefill)."""
+    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    B, Ss, _ = h.shape
+    positions = torch.arange(Ss, device=h.device)[None, :].expand(B, Ss)
+    h = _zamba_forward(params, h, cfg, positions)
+    hl = L.rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
+    return _head(hl, params, cfg), _zamba_zero_state(cfg, B, Ss, _dtype(cfg), h.device)
+
+
+def _zamba_zero_state(cfg: ArchConfig, B: int, S_cache: int, dt, device):
+    """(ssm_h, conv_buf, k_cache, v_cache): the Mamba2 states (f32) and conv
+    buffers of every layer, and the shared block's ring-buffer K/V of
+    Sw = min(S_cache, window) rows for each of its applications."""
+    ng, k, rem = _zamba_layout(cfg)
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    P = cfg.d_inner // H
+    Ck = cfg.d_inner + 2 * N
+    Sw = min(S_cache, cfg.sliding_window) if cfg.sliding_window else S_cache
+    kv = (ng, B, Sw, cfg.n_kv_heads, cfg.hd)
+    return (
+        torch.zeros((cfg.n_layers, B, H, N, P), dtype=torch.float32, device=device),
+        torch.zeros((cfg.n_layers, B, cfg.ssm_conv - 1, Ck), dtype=dt, device=device),
+        torch.zeros(kv, dtype=dt, device=device),
+        torch.zeros(kv, dtype=dt, device=device),
+    )
+
+
+def _zamba_decode(params, batch, caches, cfg: ArchConfig):
+    """One token for every sequence. The shared block writes its K/V row at
+    ``lengths mod Sw`` of its ring buffer and attends min(lengths + 1, Sw)
+    rows (the reference's decode passes no window: the ring is the
+    window)."""
+    ssm_h, conv_buf, kcs, vcs = caches
+    tokens, lengths = batch["tokens"], batch["lengths"]
+    B = tokens.shape[0]
+    Sw = kcs.shape[2]
+    h = embed_lookup(params["embed"], tokens[:, None])[:, 0].to(_dtype(cfg))
+    ng, k, rem = _zamba_layout(cfg)
+    sh = params["shared"]
+    slot = torch.remainder(lengths, Sw)  # the ring buffer's row for this token
+    valid = torch.clamp(lengths + 1, max=Sw)
+    rows = torch.arange(B, device=h.device)
+
+    def mamba(h, i):
+        lp = layer_params(params["layers"], i)
+        y, (h2, c2) = S.mamba2_decode(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps),
+                                      (ssm_h[i], conv_buf[i]), cfg)
+        ssm_h[i].copy_(h2)
+        conv_buf[i].copy_(c2)
+        return h + y
+
+    for g in range(ng):
+        for j in range(k):
+            h = mamba(h, g * k + j)
+        hn = L.rmsnorm(h, sh["ln1"], cfg.norm_eps)[:, None]
+        q, kk, vv = L.attn_proj_qkv(sh["attn"], hn, cfg)
+        q = L.rope(q, lengths[:, None], cfg.rope_theta)
+        kk = L.rope(kk, lengths[:, None], cfg.rope_theta)
+        kc, vc = kcs[g], vcs[g]
+        kc[rows, slot] = kk[:, 0]
+        vc[rows, slot] = vv[:, 0]
+        att = L.attention_decode(q[:, 0], kc, vc, valid)
+        h = h + att.reshape(B, -1) @ sh["attn"]["wo_row"]
+        h = h + L.mlp_block(sh["mlp"], L.rmsnorm(h, sh["ln2"], cfg.norm_eps)[:, None],
+                            cfg)[:, 0]
+    for i in range(ng * k, ng * k + rem):
+        h = mamba(h, i)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _head(h, params, cfg), caches
+
+
 # ---------------------------------------------------------------------------
 # build_model dispatch
 # ---------------------------------------------------------------------------
 
+# family -> (shapes, prefill, decode)
+_FAMILIES = {
+    "dense": (_lm_shapes, _lm_prefill, _lm_decode),
+    "moe": (_lm_shapes, _lm_prefill, _lm_decode),
+    "ssm": (_xlstm_shapes, _xlstm_prefill, _xlstm_decode),
+    "hybrid": (_zamba_shapes, _zamba_prefill, _zamba_decode),
+}
+
 _NOT_PORTED = {
     "vlm": "the vlm family (vision projector)",
     "encdec": "the encdec family (whisper)",
-    "ssm": "the ssm family (xlstm)",
-    "hybrid": "the hybrid family (zamba2, with its sliding window)",
 }
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _FAMILIES:
         return Model(cfg)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(

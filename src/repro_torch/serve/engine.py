@@ -54,8 +54,10 @@ class ServeEngine:
                  device=None):
         if model.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                "ServeEngine drives the dense and moe decoder LMs; the other "
-                "families are ROADMAP Queue 1 item 10"
+                "ServeEngine drives the dense and moe decoder LMs: the ssm and "
+                "hybrid families are refused, as by the reference's engine (drive "
+                "them through build_model → prefill → decode); vlm and encdec are "
+                "ROADMAP Queue 1 item 10"
             )
         self.device = resolve_device(device)
         leaf = params["embed"]

@@ -179,10 +179,15 @@ def test_attention_decode_vs_reference(S, KH, G):
 
 
 def test_attention_window_and_offset_raise():
+    """Decode attention takes no window (no config reaches one); a windowed
+    or causal prefill needs the kernel's offset, and a negative window is
+    refused (the windowed prefill itself: tests/test_torch_recurrent.py)."""
     q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        layers.attention_chunked(q, q, q, window=8)
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(NotImplementedError, match="no config reaches it"):
         layers.attention_decode(q[:, 0], q, q, torch.ones(1, dtype=torch.int32), window=8)
     with pytest.raises(NotImplementedError, match="offset"):
         layers.attention_chunked(q, q, q, causal=True, q_offset=2)
+    with pytest.raises(NotImplementedError, match="offset"):
+        layers.attention_chunked(q, q, q, causal=False, window=8, q_offset=2)
+    with pytest.raises(ValueError, match="window"):
+        layers.attention_chunked(q, q, q, window=-1)

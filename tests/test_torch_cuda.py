@@ -23,7 +23,12 @@ its capture, and a kernel's launch error fails its requests without
 tripping the breaker. The moe family: both attention kernels at
 qwen2-moe-a2.7b's serving shapes (H = KH = 16, D = 128, bf16), ``moe_ffn``
 on the card against its CPU run (both dispatch variants, capacity drops, a
-captured decode shape), and the static-analysis gate on the card.
+captured decode shape), and the static-analysis gate on the card. The
+recurrent families: ``flash_attention`` with a sliding window against its
+plain version (D of 64, 112 and 128, windows below and above S, at
+zamba2-7b's 8,192-token prefill), ``decode_attention`` at zamba2-7b's tick
+(D = 112, G = 1), and the reduced xlstm-350m and zamba2-7b (head dim 112)
+prefilled and decoded on the card against their CPU run.
 """
 from __future__ import annotations
 
@@ -812,6 +817,95 @@ def test_attention_kernels_at_the_moe_serving_shapes(dev):
     want = ref.decode_attention_ref(q, k, v, lengths)
     assert _attention_err(got, want, torch.bfloat16) <= 2e-2
     assert torch.equal(got, ops.decode_attention_op(q, kn, vn, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("window", [1, 37, 64, 200, 300, 4096])
+def test_flash_attention_kernel_with_a_window_vs_plain(dev, dtype, D, window):
+    """The sliding window (query i keeps key j only if j > i + Skv - Sq -
+    window) below and above S = 300 (ragged), causal and not, G = 1 and 4,
+    and with Sq < Skv; a window of Skv or more runs as none, bit for bit."""
+    rng = np.random.default_rng(window * 1000 + D)
+    for causal, G, Sq in ((True, 1, 300), (True, 4, 300), (False, 1, 300), (True, 1, 77)):
+        q = _normal(rng, (2, Sq, 2 * G, D), dtype, dev)
+        k = _normal(rng, (2, 300, 2, D), dtype, dev)
+        v = _normal(rng, (2, 300, 2, D), dtype, dev)
+        before = LAUNCHES["flash_attention"]
+        got = ops.flash_attention_op(q, k, v, causal=causal, window=window)
+        assert LAUNCHES["flash_attention"] == before + 1
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert _attention_err(got, want, dtype) <= ATOL[dtype], (causal, G, Sq)
+        if window >= 300:
+            assert torch.equal(got, ops.flash_attention_op(q, k, v, causal=causal))
+
+
+def test_flash_attention_kernel_window_at_zamba2s_long_prefill(dev):
+    """zamba2-7b's shared attention over one 8,192-token prompt: H = KH = 32,
+    D = 112, bf16, window 4,096, so the window masks half the keys."""
+    rng = np.random.default_rng(8192)
+    q, k, v = (_normal(rng, (1, 8192, 32, 112), torch.bfloat16, dev) for _ in range(3))
+    got = ops.flash_attention_op(q, k, v, causal=True, window=4096)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=4096)
+    assert _attention_err(got, want, torch.bfloat16) <= 2e-2
+    assert not torch.equal(got, ops.flash_attention_op(q, k, v, causal=True))
+
+
+def test_decode_attention_kernel_at_zamba2s_tick(dev):
+    """zamba2-7b's decode over its ring buffer: 16 slots, 512 rows all
+    valid, H = KH = 32 (G = 1), D = 112, bf16; the tick repeats bit for
+    bit."""
+    rng = np.random.default_rng(112)
+    q = _normal(rng, (16, 32, 112), torch.bfloat16, dev)
+    k = _normal(rng, (16, 512, 32, 112), torch.bfloat16, dev)
+    v = _normal(rng, (16, 512, 32, 112), torch.bfloat16, dev)
+    lengths = torch.full((16,), 512, dtype=torch.int32, device=dev)
+    got = ops.decode_attention_op(q, k, v, lengths)
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    assert _attention_err(got, want, torch.bfloat16) <= 2e-2
+    assert torch.equal(got, ops.decode_attention_op(q, k, v, lengths))
+
+
+@pytest.mark.parametrize("name", ["xlstm-350m", "zamba2-7b"])
+def test_recurrent_prefill_and_decode_on_the_card_match_the_cpu(dev, name):
+    """The reduced xlstm-350m and zamba2-7b in float32, zamba2 widened to
+    head dim 112 (d_model 448, 4 heads, 14 SSM heads of 64), the same
+    weights on both devices: prefill logits over 96 tokens (past the window
+    of 64) and three decode steps' logits and caches within 1e-4 (float32
+    sums in other orders), the attention kernels launched on the card."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(name)
+    if name == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, d_model=448, n_heads=4, n_kv_heads=4, ssm_heads=14)
+        assert cfg.hd == 112
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
+
+    rng = np.random.default_rng(3)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, size=(3, 99)), dtype=torch.int32)
+    runs = []
+    for p, d in ((params, "cpu"), (to(params, dev), dev)):
+        before = dict(LAUNCHES)
+        logits, caches = model.prefill(p, {"tokens": toks[:, :96].to(d)})
+        out = [logits.cpu()]
+        for t in range(96, 99):
+            lengths = torch.full((3,), t, dtype=torch.int32, device=d)
+            logits, caches = model.decode(p, {"tokens": toks[:, t].to(d), "lengths": lengths},
+                                          caches)
+            out.append(logits.cpu())
+        runs.append((out, [c.cpu() for c in caches]))
+        if d == dev and name == "zamba2-7b":
+            assert LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+            assert LAUNCHES["decode_attention"] == before["decode_attention"] + 3 * 2
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("dispatch", ["einsum", "scatter"])

@@ -48,7 +48,7 @@ def test_port_has_the_expected_layout():
         "flash_attention_wgmma.cu", "gather_join.cu", "segment_agg.cu", "tree_gemm.cu",
     ]
     # the walk below reaches the LM serving path's modules too
-    for mod in ("models/zoo.py", "models/layers.py", "configs/granite_3_8b.py",
+    for mod in ("models/zoo.py", "models/layers.py", "models/ssm.py", "configs/granite_3_8b.py",
                 "serve/engine.py", "kernels/attention.py"):
         assert pkg / mod in PORT_FILES, mod
 
