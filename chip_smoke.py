@@ -67,7 +67,12 @@ registry; and a third path serves an LM through ``build_model(get_config(...)).i
   4,096), both bf16 at their published widths and depths, random weights
   drawn on the card from a seed: 16 prompts of 512 tokens prefilled, then
   64 greedy decode steps, each one captured CUDA graph; zamba2-7b also
-  prefills one prompt of 8,192 tokens, so its window masks.
+  prefills one prompt of 8,192 tokens, so its window masks;
+* then, those freed, the last two families the same way: llava-next-34b
+  (vlm: 576 image patch embeddings projected before each 512-token
+  prompt) and whisper-small (encdec: an encoder over 1,500 audio frames,
+  a decoder with cross attention), both at their published widths and
+  depths, bf16, random weights drawn on the card from a seed.
 
 Before the moe family, the static-analysis gate ``python -m
 repro_torch.analysis`` runs in a child process on the card.
@@ -84,7 +89,12 @@ In order it
    those arguments (``featurize``, ``gather_join`` and ``segment_agg`` on
    dyadic data bitwise; ``tree_gemm`` within 1e-5 and ``segment_agg`` on
    the model's scores within rtol 1e-5, sums over another order; the
-   attention kernels within 2e-2 in bf16 and 2e-5 in f32) and times it, its
+   attention kernels within 2e-2 in bf16 and 2e-5 in f32 and, for each
+   output row, within 1e-2 (bf16) or 1e-4 (f32) of its norm, both on
+   those arguments and on probe inputs of the same shapes, mask and
+   lengths whose scores spread, see ``ATT_ROW_REL_TOL``; each planted
+   fault, the last K/V tile or the last split dropped, must fail that check
+   on the probe inputs) and times it, its
    plain version and, where one exists, one PyTorch library call computing
    the same function, beside its bound on an H100, and again L2-cold
    (bursts rotating over copies of its arguments; no one PyTorch call
@@ -94,7 +104,11 @@ In order it
    backend that takes the call (with ``is_causal=True`` tried beside the
    boolean mask where Sq == Skv), named in the output; then ``tree_gemm``
    once more on the hospital rows with +inf, -inf and NaN put in, within
-   1e-5 of its plain version and NaN in the same places. A second call of
+   1e-5 of its plain version and NaN in the same places; at each
+   window-free ``flash_attention`` site, the window-free loop against the
+   windowed loop given a window past Skv (what every call ran before the
+   window was a template parameter): bit for bit equal, both timed in
+   turns. A second call of
    ``featurize``, ``tree_gemm``, ``gather_join`` and ``segment_agg``
    repeats the first bit for bit. Sites the main path does not reach are
    held and timed the same way: ``featurize`` on the hospital's columns
@@ -242,14 +256,32 @@ In order it
    full width with 7 layers each prefill a 256-token prompt and decode it
    token by token from zero state (a 256-row ring), the last logits within
    1e-3 of their largest magnitude;
-15. prints the run's total time, the kernel table as one JSON line
+15. the families phase: every earlier model, plan, table and graph freed
+   (``capture.clear()``); llava-next-34b at its published width and depth
+   (60 layers, d_model 7,168, 56 query heads over 8 KV heads, d_ff 20,480,
+   bf16, random weights: 64.2 GiB; at least 70 GiB must be free before
+   ``init``), the batch (up to 8) chosen from the memory free after it,
+   prompts of 576 seeded patch embeddings and 512 tokens; then, llava
+   freed, whisper-small (12 encoder and 12 decoder layers, d_model 768,
+   12 heads of 64) on 16 clips of 1,500 seeded frames with decoder prompts
+   of 4 and of 224 tokens. Both through ``build_model`` → ``init`` →
+   ``prefill`` → ``decode``: their attention sites (G = 7; the 1,500-row
+   encoder, the cross attention over it, the cross cache) recorded in an
+   eager warm-up, held against the plain versions and timed; a counted
+   run a prompt (32 llava steps, 64 whisper steps, eager and each one
+   captured CUDA graph, bit for bit equal; 60 ``flash_attention`` a llava
+   prefill and 60 ``decode_attention`` a step, 36 and 24 for whisper, the
+   capture's warm-up step included), the prefill, the step, tokens per
+   second, the bound a step and the card's idle share; the eager run's
+   tokens against a plain-attention run up to the first near-tie;
+16. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
    included), the LM serving run, the analysis gate's scenarios, the moe
-   serving run and the recurrent runs; ``sites``: every site held and
-   timed, the main path's and the extra ones) and, last, the device line
-   ``{"ok": true, "device": {...}}``.
+   serving run, the recurrent runs and the families' runs; ``sites``:
+   every site held and timed, the main path's and the extra ones) and,
+   last, the device line ``{"ok": true, "device": {...}}``.
 
 It catches nothing: any failed check raises and the exit code is not 0.
 Without a card it exits non-zero before printing any result, as it does
@@ -299,6 +331,12 @@ REC_LONG = 8192  # zamba2-7b's one long prompt: its window of 4,096 masks
 REC_CHECK_BATCH, REC_CHECK_PROMPT = 2, 256  # the float32 recurrence check
 ZAMBA_CHECK_LAYERS = 7  # zamba2-7b's depth in the check: one group of 6 and one more
 REC_CHECK_TOL = 1e-3  # of the largest logit: float32 sums in other orders
+LLAVA_ARCH, WHISPER_ARCH, FAM_SEED = "llava-next-34b", "whisper-small", 0
+LLAVA_PROMPT, LLAVA_STEPS, LLAVA_MAX_BATCH = 512, 32, 8  # tokens after the 576 patch rows
+LLAVA_MIN_FREE_GIB = 70  # its bf16 weights take 64.2 GiB
+FAMILY_RESERVE = 2 * 2**30  # bytes kept free beside the chosen batch
+WHISPER_BATCH, WHISPER_PROMPTS, WHISPER_STEPS = 16, (4, 224), 64
+PROFILE_STEPS = 4  # decode steps profiled after a counted run (cache rows for them)
 GATE_TIMEOUT_S = 600
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
@@ -324,6 +362,17 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:60"),
 }
 ATTENTION = ("flash_attention", "decode_attention")
+# An attention kernel is held against its plain version twice: on the
+# inputs its site was handed and on probe inputs of the same shapes, dtype,
+# mask and lengths (q and k unit normal, so the scaled scores spread by 1;
+# v a quarter of a unit normal), which a model's random weights do not
+# give: their scores are near flat and their values near equal, so a
+# dropped tile moves the output by less than a bfloat16 step. Each output
+# row (a query's D values) must lie within ATT_ROW_REL_TOL of its norm,
+# besides the absolute tolerance of check_attention.
+ATT_ROW_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+PROBE_SEED = 7
+FLASH_TILE_KV = 64  # keys of a flash_attention K/V tile (BN in csrc/flash_attention_wgmma.cu)
 
 
 def wrapper(name: str):
@@ -731,24 +780,140 @@ def tree_gemm_path_ops(x, A, B, C, D) -> int:
     return int(compares) + x.shape[0] * A.shape[0]
 
 
-def check_attention(got, want, name: str) -> float:
-    """Kernel against plain version: atol 2e-2 in bf16, 2e-5 in f32 (the
-    reference's kernel-sweep tolerances)."""
+def row_rel_err(got, want) -> float:
+    """The largest error of one output row (the last axis: a query's D
+    values) over the norm of that row of ``want``."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    diff, norm = (g - w).norm(dim=-1), w.norm(dim=-1)
+    rel = torch.where(diff == 0, torch.zeros_like(diff), diff / norm)
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def attention_errors(got, want) -> tuple[float, float, bool]:
+    """(largest absolute error, largest row-relative error, within both
+    tolerances): atol 2e-2 in bf16 and 2e-5 in f32 (the reference's
+    kernel-sweep tolerances), and ``ATT_ROW_REL_TOL``."""
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    rel = row_rel_err(got, want)
+    tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
+    return err, rel, err <= tol and rel <= ATT_ROW_REL_TOL[got.dtype]
+
+
+def check_attention(got, want, name: str) -> tuple[float, float]:
+    """Kernel against plain version within both tolerances of
+    :func:`attention_errors`. Returns the two errors."""
     check(got.dtype == want.dtype and got.shape == want.shape, (name, got.shape, want.shape))
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    err = float((got.float() - want.float()).abs().max())
-    tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
-    check(err <= tol, f"{name} off by {err} (tolerance {tol})")
-    return err
+    err, rel, ok = attention_errors(got, want)
+    check(ok, f"{name} off by {err} ({rel} of a row's norm; tolerances "
+              f"{2e-2 if got.dtype == torch.bfloat16 else 2e-5}, "
+              f"{ATT_ROW_REL_TOL[got.dtype]} of a row's norm)")
+    return err, rel
+
+
+def attention_probe(name: str, args: tuple) -> tuple:
+    """A site's arguments with its tensors redrawn from ``PROBE_SEED`` at
+    the same shapes and dtypes (q, k unit normal, v a quarter of one); a
+    decode site keeps its lengths."""
+    gen = torch.Generator(device=args[0].device).manual_seed(PROBE_SEED)
+
+    def draw(t, s: float = 1.0):
+        return (torch.randn(t.shape, generator=gen, device=t.device) * s).to(t.dtype)
+
+    q, k, v = args[:3]
+    return (draw(q), draw(k), draw(v, 0.25), *args[3:])
+
+
+def masked_attention(q, k, v, scale: float, keep) -> torch.Tensor:
+    """``ref.flash_attention_ref``'s arithmetic under an explicit (Sq, Skv)
+    ``keep`` mask."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    qg = (q.float() * scale).reshape(B, Sq, KH, H // KH, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    p = torch.softmax(torch.where(keep[None, None, None], logits, -torch.inf), dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def planted_faults(name: str, kwargs: dict, args: tuple) -> list[tuple[str, torch.Tensor]]:
+    """What a kernel with a planted fault would return on ``args``,
+    computed by the plain arithmetic: ``flash_attention`` with its last K/V
+    tile (the ragged one where Skv is no multiple of 64) dropped;
+    ``decode_attention`` with each sequence's last tile (its rows past a
+    multiple of 64) dropped, and with the last split that ``decode_splits``
+    cuts dropped. A fault that would leave some query no key is not
+    planted."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import SPLIT_TILE, decode_splits
+
+    faults = []
+    if name == "flash_attention":
+        q, k, v = args
+        Sq, Skv = q.shape[1], k.shape[1]
+        kept = Skv - (Skv % FLASH_TILE_KV or FLASH_TILE_KV)
+        if kept < 1:
+            return faults
+        window = kwargs.get("window", 0)
+        ar = torch.arange(Skv, device=q.device)
+        qp, kp = ar[:Sq, None] + (Skv - Sq), ar[None, :]
+        keep = (kp <= qp) if kwargs["causal"] else torch.ones_like(kp <= qp)
+        if window > 0:
+            keep = keep & (kp > qp - window)
+        keep = keep & (kp < kept)
+        if bool(keep.any(dim=1).all()):
+            faults.append((f"last K/V tile ({Skv - kept} of {Skv} rows) dropped",
+                           masked_attention(q, k, v, kwargs["scale"], keep)))
+        return faults
+    q, kc, vc, lengths = args
+    B, S, KH = kc.shape[0], kc.shape[1], kc.shape[2]
+    tiles = lengths - torch.where(lengths % SPLIT_TILE == 0, SPLIT_TILE, lengths % SPLIT_TILE)
+    n_split, chunk = decode_splits(S, B, KH)
+    span = "..".join(str(int(x)) for x in sorted({int(lengths.min()), int(lengths.max())}))
+    cut = {f"each sequence's last {SPLIT_TILE}-row tile (the rows past a multiple of "
+           f"{SPLIT_TILE}, of lengths {span}) dropped": tiles}
+    if n_split > 1:
+        cut[f"last of {n_split} splits (rows {(n_split - 1) * chunk}..{S}) dropped"] = (
+            lengths.clamp(max=(n_split - 1) * chunk))
+    for what, short in cut.items():
+        if bool((short >= 1).all()) and not torch.equal(short, lengths):
+            faults.append((what, ref.decode_attention_ref(q, kc, vc, short,
+                                                          scale=kwargs["scale"])))
+    return faults
+
+
+def hold_attention(name: str, kern, plain_on, args: tuple, kwargs: dict):
+    """``kern`` against ``plain_on`` on the site's inputs and on probe
+    inputs, each within both tolerances; each planted fault held against
+    the plain version on both inputs, and the probe's check must reject
+    it. Returns the kernel's output on the site's inputs,
+    the two errors on each input and the planted faults' errors."""
+    got, want = kern(*args, **kwargs), plain_on(*args)
+    err, rel = check_attention(got, want, name)
+    probe = attention_probe(name, args)
+    p_want = plain_on(*probe)
+    p_err, p_rel = check_attention(kern(*probe, **kwargs), p_want, f"{name} on probe inputs")
+    planted = []
+    for (what, bad), (_, p_bad) in zip(planted_faults(name, kwargs, args),
+                                       planted_faults(name, kwargs, probe)):
+        site, on_probe = attention_errors(bad, want), attention_errors(p_bad, p_want)
+        check(not on_probe[2], f"{name}: the check passes a planted fault on probe "
+                               f"inputs ({what}): errors {on_probe[:2]}")
+        planted.append({"fault": what, "site": site, "probe": on_probe})
+    return got, err, rel, p_err, p_rel, planted
 
 
 def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
-    """One recorded call: kernel against plain version, times and bound."""
+    """One recorded call: kernel against plain version, times and bound.
+    An attention kernel is also held on probe inputs (``attention_probe``)
+    and each planted fault (``planted_faults``) against the plain version
+    on both inputs: the probe's check must reject it."""
     from repro_torch.kernels import ref
 
     kern = wrapper(name)
     library = None
     rate = FP32_FLOPS_PER_S
+    rel = p_err = p_rel = None
+    planted = []
     if name == "featurize":
         from repro_torch.kernels.ops import stack_columns
 
@@ -811,10 +976,11 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         q, k, v = args
         causal, scale = kwargs["causal"], kwargs["scale"]
         window = kwargs.get("window", 0)
-        plain = lambda: ref.flash_attention_ref(  # noqa: E731
+        plain_on = lambda q, k, v: ref.flash_attention_ref(  # noqa: E731
             q, k, v, causal=causal, scale=scale, window=window)
-        got, want = kern(*args, **kwargs), plain()
-        err = check_attention(got, want, name)
+        plain = lambda: plain_on(*args)  # noqa: E731
+        got, err, rel, p_err, p_rel, planted = hold_attention(name, kern, plain_on, args,
+                                                              kwargs)
         B, Sq, H, D = q.shape
         Skv, KH = k.shape[1], k.shape[2]
         off = Skv - Sq
@@ -848,9 +1014,11 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
     elif name == "decode_attention":
         q, kc, vc, lengths = args
         scale = kwargs["scale"]
-        plain = lambda: ref.decode_attention_ref(q, kc, vc, lengths, scale=scale)  # noqa: E731
-        got, want = kern(*args, **kwargs), plain()
-        err = check_attention(got, want, name)
+        plain_on = lambda q, kc, vc, lengths: ref.decode_attention_ref(  # noqa: E731
+            q, kc, vc, lengths, scale=scale)
+        plain = lambda: plain_on(*args)  # noqa: E731
+        got, err, rel, p_err, p_rel, planted = hold_attention(name, kern, plain_on, args,
+                                                              kwargs)
         B, H, D = q.shape
         S, KH = kc.shape[1], kc.shape[2]
         rows = int(lengths.sum())  # the valid cache rows: what this call reads
@@ -904,6 +1072,8 @@ def parity_site(name: str, args: tuple, kwargs: dict, dyadic: bool) -> dict:
         "ms": time_graph_ms(run, 50), "plain_ms": time_ms(plain, 10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library": None,
         "cold_ms": time_cold_ms(kern, args, kwargs, moved),
+        "row_rel_err": rel, "probe_max_abs_err": p_err, "probe_row_rel_err": p_rel,
+        "planted": planted,
     }
     if isinstance(library, dict):  # attention: the fastest SDPA backend
         row["library_ms"], row["library"] = fastest_sdpa(library)
@@ -992,15 +1162,25 @@ def extra_sites(dev, calls) -> list[tuple[str, str, tuple, dict]]:
 
 
 def report_site(name: str, label: str, row: dict) -> None:
+    held = ""
+    if row["row_rel_err"] is not None:  # attention: the row-relative error and the probe
+        held = (f" row_rel_err={row['row_rel_err']!r} probe max_abs_err="
+                f"{row['probe_max_abs_err']!r} row_rel_err={row['probe_row_rel_err']!r}")
     print(f"parity {name:<16} [{label}] {row['shape']}: max_abs_err="
-          f"{row['max_abs_err']!r} ms={row['ms']!r} cold_ms={row['cold_ms']!r} "
+          f"{row['max_abs_err']!r}{held} ms={row['ms']!r} cold_ms={row['cold_ms']!r} "
           f"plain_ms={row['plain_ms']!r} bound_ms={row['bound_ms']!r} "
           f"({row['bound_by']}) library_ms={row['library_ms']!r}"
           + (f" (fastest: {row['library']})" if row["library"] else ""), flush=True)
+    for f in row["planted"]:
+        (s_err, s_rel, s_ok), (p_err, p_rel, _) = f["site"], f["probe"]
+        print(f"planted fault {name} [{label}] {f['fault']}: on the site's inputs max_abs_err="
+              f"{s_err!r} row_rel_err={s_rel!r} ({'passes' if s_ok else 'rejected'}); on probe "
+              f"inputs max_abs_err={p_err!r} row_rel_err={p_rel!r} (rejected)", flush=True)
 
 
-SITE_KEYS = ("shape", "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "library")
+SITE_KEYS = ("shape", "max_abs_err", "row_rel_err", "probe_max_abs_err", "probe_row_rel_err",
+             "planted", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library")
 
 
 def site_entry(label: str, row: dict) -> dict:
@@ -2760,11 +2940,8 @@ def moe_phase(dev, smi: str, rows: dict) -> dict[str, int]:
           f"{eager_wall:.2f} s", flush=True)
     check(sorted({c[0] for c in rec.calls}) == sorted(ATTENTION),
           f"kernels reached: {sorted({c[0] for c in rec.calls})}")
-    for name, label, args, kwargs in rec.calls:
-        row = parity_site(name, args, kwargs, dyadic=False)
-        report_site(name, f"{MOE_ARCH} {label}", row)
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
-        rows[name]["sites"].append(site_entry(f"{MOE_ARCH} {label}", row))
+    hold_sites([(name, f"{MOE_ARCH} {label}", args, kw) for name, label, args, kw in rec.calls],
+               rows)
     del rec
     moe_routing(model, params, requests, dev)
     lm_counts = serve_counted(model, params, requests, dev,
@@ -2787,11 +2964,12 @@ class GreedyDecode:
     port's ``jax.jit`` of the reference's decode step), whose replays then
     advance the same buffers."""
 
-    def __init__(self, model, params, tokens, lengths: int, caches):
+    def __init__(self, model, params, tokens, lengths: int, caches, rows: int | None = None):
         self.model, self.params, self.caches = model, params, caches
         self.tokens = tokens.to(torch.int32).clone()
         self.lengths = torch.full_like(self.tokens, lengths)
         self.host_lengths = lengths  # every sequence at one length
+        self.rows = rows  # the K/V cache's rows (None: a ring, or no cache)
         self.graph = None
         self.launches: dict[str, int] = {}
         self.graph_bytes = 0
@@ -2832,9 +3010,11 @@ class GreedyDecode:
         if self.graph is None:
             logits = self._step()
         else:
-            # the graph's decode attends min(lengths + 1, ring rows): in
-            # [1, rows] for every length >= 0
-            check(self.host_lengths >= 0, f"decode lengths {self.host_lengths}")
+            # the graph's decode attends lengths + 1 rows of a cache (which
+            # must hold the new row), or min(lengths + 1, ring rows)
+            check(self.host_lengths >= 0
+                  and (self.rows is None or self.host_lengths < self.rows),
+                  f"decode lengths {self.host_lengths} over a cache of {self.rows} rows")
             self.graph.replay()
             for name, n in self.launches.items():
                 _build.launched(name, n)
@@ -2858,10 +3038,10 @@ def decode_run(dec: GreedyDecode, steps: int) -> dict:
     return {"logits": logits, "tokens": tokens, "ticks_ms": ticks}
 
 
-def build_recurrent(arch: str, dev, **replace):
+def build_published(arch: str, dev, **replace):
     """``arch`` at its published width (``replace`` cuts depth or changes
     the dtype for the recurrence check), random weights drawn on the card
-    from a seed."""
+    from a seed, a layer at a time."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -2878,10 +3058,11 @@ def build_recurrent(arch: str, dev, **replace):
     return model, params
 
 
-def timed_prefill(model, params, tokens) -> tuple[torch.Tensor, tuple, float]:
+def timed_prefill(model, params, batch: dict, cache_len: int | None = None
+                  ) -> tuple[torch.Tensor, tuple, float]:
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, caches = model.prefill(params, {"tokens": tokens})
+    logits, caches = model.prefill(params, batch, cache_len=cache_len)
     torch.cuda.synchronize()
     return logits, caches, 1e3 * (time.perf_counter() - t)
 
@@ -2925,39 +3106,21 @@ def serve_recurrent(model, params, dev, smi: str, long_prompt: bool) -> dict:
     long_prompt_tokens = torch.tensor(rng.integers(0, V, size=(1, REC_LONG)),
                                       dtype=torch.int32, device=dev)
     zero_counts()
-    logits, caches, prefill_ms = timed_prefill(model, params, tokens)
+    logits, caches, prefill_ms = timed_prefill(model, params, {"tokens": tokens})
     check(bool(torch.isfinite(logits[:, :V]).all()), f"{arch}: prefill logits")
-    first = logits.argmax(-1)
-    runs = {}
-    for mode in ("eager", "captured"):
-        dec = GreedyDecode(model, params, first, REC_PROMPT, tuple(c.clone() for c in caches))
-        if mode == "captured":
-            dec.capture(dev)
-        runs[mode] = (dec, decode_run(dec, REC_STEPS))
+    runs = greedy_runs(model, params, logits.argmax(-1), REC_PROMPT, caches, REC_STEPS, dev)
+    del caches
     long_ms = None
     if long_prompt:
-        long_logits, _, long_ms = timed_prefill(model, params, long_prompt_tokens)
+        long_logits, _, long_ms = timed_prefill(model, params, {"tokens": long_prompt_tokens})
         check(bool(torch.isfinite(long_logits).all()), f"{arch}: long prefill logits")
     counts = read_counts()
-    (eager, e), (capt, c) = runs["eager"], runs["captured"]
-    for step, (a, b) in enumerate(zip(e["logits"], c["logits"])):
-        check(bool(torch.isfinite(a[:, :V]).all()), f"{arch}: decode step {step} logits")
-        check(torch.equal(a, b), f"{arch}: captured step {step}'s logits differ from eager")
-    check(all(torch.equal(a, b) for a, b in zip(e["tokens"], c["tokens"])),
-          f"{arch}: captured tokens differ from eager")
-    check(all(torch.equal(a, b) for a, b in zip(eager.caches, capt.caches)),
-          f"{arch}: the captured run's final state differs from the eager run's")
+    check_runs(arch, runs, V)
     stats = {"prefill_ms": prefill_ms, "batch": REC_BATCH, "prompt": REC_PROMPT,
              "steps": REC_STEPS, "long_prefill_ms": long_ms,
              "long_prefill_tokens": REC_LONG if long_prompt else None}
-    for mode, (_, r) in runs.items():
-        wall_s = sum(r["ticks_ms"]) / 1e3
-        stats[f"tick_ms_{mode}_median"] = float(np.median(r["ticks_ms"]))
-        stats[f"tick_ms_{mode}_p90"] = float(np.percentile(r["ticks_ms"], 90))
-        stats[f"tokens_per_s_{mode}"] = REC_BATCH * REC_STEPS / wall_s
-    stats["graph_bytes"] = capt.graph_bytes
-    stats["gib_allocated"] = torch.cuda.memory_allocated() / 2**30
-    stats["gib_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    stats.update(run_stats(runs, REC_BATCH, REC_STEPS))
+    (eager, _), (capt, _) = runs["eager"], runs["captured"]
     print(f"launches of the {arch} run: {counts}; captured steps equal eager bit for bit "
           f"(tokens, logits, final state) over {REC_STEPS} steps", flush=True)
     stats["idle_share_captured"] = profile_card(capt.step, 4, stats["tick_ms_captured_median"],
@@ -2971,6 +3134,50 @@ def serve_recurrent(model, params, dev, smi: str, long_prompt: bool) -> dict:
     return counts
 
 
+def greedy_runs(model, params, first, lengths: int, caches, steps: int, dev,
+                rows: int | None = None) -> dict:
+    """``steps`` greedy decode steps from a prefill's ``caches`` and first
+    tokens: eagerly on a copy of the caches, and with each step one
+    captured CUDA graph on the caches themselves. Returns mode -> (the
+    ``GreedyDecode``, its ``decode_run``)."""
+    runs = {}
+    for mode in ("eager", "captured"):
+        held = tuple(c.clone() for c in caches) if mode == "eager" else caches
+        dec = GreedyDecode(model, params, first, lengths, held, rows)
+        if mode == "captured":
+            dec.capture(dev)
+        runs[mode] = (dec, decode_run(dec, steps))
+    return runs
+
+
+def check_runs(arch: str, runs: dict, V: int) -> None:
+    """Captured steps bitwise the eager ones: every step's logits (finite),
+    the tokens and the final state or caches."""
+    (eager, e), (capt, c) = runs["eager"], runs["captured"]
+    for step, (a, b) in enumerate(zip(e["logits"], c["logits"])):
+        check(bool(torch.isfinite(a[:, :V]).all()), f"{arch}: decode step {step} logits")
+        check(torch.equal(a, b), f"{arch}: captured step {step}'s logits differ from eager")
+    check(all(torch.equal(a, b) for a, b in zip(e["tokens"], c["tokens"])),
+          f"{arch}: captured tokens differ from eager")
+    check(all(torch.equal(a, b) for a, b in zip(eager.caches, capt.caches)),
+          f"{arch}: the captured run's final state differs from the eager run's")
+
+
+def run_stats(runs: dict, batch: int, steps: int) -> dict:
+    """Each mode's step (median, p90) and tokens a second; the graph's bytes
+    and the memory held and at its peak."""
+    stats = {}
+    for mode, (_, r) in runs.items():
+        wall_s = sum(r["ticks_ms"]) / 1e3
+        stats[f"tick_ms_{mode}_median"] = float(np.median(r["ticks_ms"]))
+        stats[f"tick_ms_{mode}_p90"] = float(np.percentile(r["ticks_ms"], 90))
+        stats[f"tokens_per_s_{mode}"] = batch * steps / wall_s
+    stats["graph_bytes"] = runs["captured"][0].graph_bytes
+    stats["gib_allocated"] = torch.cuda.memory_allocated() / 2**30
+    stats["gib_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    return stats
+
+
 def recurrence_check(arch: str, dev, **replace) -> float:
     """Float32: a prompt of ``REC_CHECK_PROMPT`` tokens prefilled, and the
     same prompt decoded one token at a time from the zeroed caches of a
@@ -2979,7 +3186,7 @@ def recurrence_check(arch: str, dev, **replace) -> float:
     magnitude. The chunked SSD, the mLSTM normaliser, the causal conv
     against the conv buffer and windowed prefill attention against
     ring-buffer decode attention compute one function each."""
-    model, params = build_recurrent(arch, dev, dtype="float32", **replace)
+    model, params = build_published(arch, dev, dtype="float32", **replace)
     V = model.cfg.vocab_size
     rng = np.random.default_rng(REC_SEED + 2)
     toks = torch.tensor(rng.integers(0, V, size=(REC_CHECK_BATCH, REC_CHECK_PROMPT)),
@@ -3013,7 +3220,7 @@ def recurrent_phase(dev, smi: str, rows: dict) -> dict[str, int]:
 
     counts = dict.fromkeys(KERNELS, 0)
     torch.cuda.reset_peak_memory_stats()
-    model, params = build_recurrent(XLSTM_ARCH, dev)
+    model, params = build_published(XLSTM_ARCH, dev)
     cfg = model.cfg
     check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.slstm_every,
            cfg.vocab_size) == ("ssm", "bfloat16", 24, 1024, 4, 8, 50304), cfg)
@@ -3024,7 +3231,7 @@ def recurrent_phase(dev, smi: str, rows: dict) -> dict[str, int]:
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    model, params = build_recurrent(ZAMBA_ARCH, dev)
+    model, params = build_published(ZAMBA_ARCH, dev)
     cfg = model.cfg
     check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.ssm_heads, cfg.d_inner,
            cfg.ssm_state, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.sliding_window,
@@ -3044,11 +3251,7 @@ def recurrent_phase(dev, smi: str, rows: dict) -> dict[str, int]:
     del logits, caches
     check(sorted({c[0] for c in rec.calls}) == sorted(ATTENTION),
           f"kernels reached: {sorted({c[0] for c in rec.calls})}")
-    for name, label, args, kwargs in rec.calls:
-        row = parity_site(name, args, kwargs, dyadic=False)
-        report_site(name, label, row)
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
-        rows[name]["sites"].append(site_entry(label, row))
+    hold_sites(rec.calls, rows)
     del rec
     got = serve_recurrent(model, params, dev, smi, long_prompt=True)
     check(got["flash_attention"] == 2 * ng
@@ -3067,6 +3270,264 @@ def recurrent_phase(dev, smi: str, rows: dict) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The last two families: llava-next-34b (vlm) and whisper-small (encdec)
+# ---------------------------------------------------------------------------
+
+
+class StepRows:
+    """A greedy run's logits by (sequence, step), step 0 the prefill's, as
+    ``compare_served`` reads a traced serving run's."""
+
+    def __init__(self, prefill_logits, run: dict):
+        self.logits = [prefill_logits, *run["logits"]]
+
+    def row(self, rid: int, step: int) -> torch.Tensor:
+        return self.logits[step][rid].float()
+
+    def tokens(self) -> dict[int, list[int]]:
+        """Each sequence's greedy tokens, one a row of logits."""
+        picked = torch.stack([lg.argmax(-1) for lg in self.logits], 1).cpu()
+        return {rid: picked[rid].tolist() for rid in range(picked.shape[0])}
+
+
+def step_weight_bytes(params) -> int:
+    """The weights a decode step reads: every decoder layer's leaves but the
+    cross K/V projections (their output is cached), the final norm and the
+    output embedding."""
+    from repro_torch.models import zoo
+
+    cached = ("xattn/wk_col", "xattn/wv_col", "xattn/bk_col", "xattn/bv_col")
+    return (nbytes(params["final_norm"], params["out_embed"])
+            + sum(nbytes(t) for path, t in zoo._leaves(params["layers"]) if path not in cached))
+
+
+def record_family(model, params, batches: list[tuple[dict, int]], steps: int, dev,
+                  site) -> list:
+    """An eager warm-up (no capture) recording what the attention kernels
+    are handed: for each (batch, prompt rows), its prefill and one decode
+    step. ``site(name, args, kwargs)`` names a call's site; a site is held
+    once, whichever prefill reached it first. Returns the recorded calls."""
+    from repro_torch.exec import capture
+
+    with Recorder() as rec, capture.disabled():
+        rec.label = model.cfg.name
+        for batch, rows in batches:
+            logits, caches = model.prefill(params, batch, cache_len=rows + steps + PROFILE_STEPS)
+            GreedyDecode(model, params, logits.argmax(-1), rows, caches).step()
+            del logits, caches
+    check(sorted({c[0] for c in rec.calls}) == sorted(ATTENTION),
+          f"kernels reached: {sorted({c[0] for c in rec.calls})}")
+    return [(name, f"{model.cfg.name} {site(name, args, kwargs)}", args, kwargs)
+            for name, _, args, kwargs in rec.calls]
+
+
+def hold_sites(calls: list, rows: dict) -> None:
+    """Each recorded (kernel, label, args, kwargs) site against its plain
+    version (``parity_site``), timed beside its bound and the fastest cuDNN
+    call; into the kernel table's rows."""
+    for name, label, args, kwargs in calls:
+        row = parity_site(name, args, kwargs, dyadic=False)
+        report_site(name, label, row)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+        rows[name]["sites"].append(site_entry(label, row))
+
+
+def serve_family(model, params, batch: dict, prompt_rows: int, steps: int, dev, smi: str,
+                 step_bytes: int, label: str) -> dict[str, int]:
+    """The Model API at full width, counted: ``batch`` prefilled into
+    caches of prompt_rows + steps + PROFILE_STEPS rows (the profiled steps
+    need rows too), then ``steps`` greedy decode steps eagerly and with
+    each step one captured CUDA graph; the counts zeroed before and read
+    after. Captured steps must equal the eager ones bit for bit (tokens,
+    logits, caches). Prints the prefill, the step captured and eager, tokens
+    a second, memory, the bound a step (``step_bytes`` over the memory
+    rate) and the card's idle share; then runs the same prefill and steps
+    under plain attention and holds the eager run's tokens against them up
+    to the first near-tie. Returns the counted run's launches."""
+    from repro_torch.exec import capture
+
+    arch, V = model.cfg.name, model.cfg.vocab_size
+    B = batch["tokens"].shape[0]
+    cache_len = prompt_rows + steps + PROFILE_STEPS
+    zero_counts()
+    logits, caches, prefill_ms = timed_prefill(model, params, batch, cache_len)
+    check(bool(torch.isfinite(logits[:, :V]).all()), f"{arch} {label}: prefill logits")
+    runs = greedy_runs(model, params, logits.argmax(-1), prompt_rows, caches, steps, dev,
+                       rows=cache_len)
+    del caches
+    counts = read_counts()
+    check_runs(f"{arch} {label}", runs, V)
+    kern = StepRows(logits, runs["eager"][1])
+    stats = {"batch": B, "prompt_rows": prompt_rows, "steps": steps, "cache_rows": cache_len,
+             "prefill_ms": prefill_ms, "bound_step_ms": 1e3 * step_bytes / HBM_BYTES_PER_S,
+             "bound_step_bytes": step_bytes}
+    stats.update(run_stats(runs, B, steps))
+    print(f"launches of the {arch} {label} run: {counts}; captured steps equal eager bit for "
+          f"bit (tokens, logits, caches) over {steps} steps", flush=True)
+    (eager, _), (capt, _) = runs["eager"], runs["captured"]
+    stats["idle_share_captured"] = profile_card(capt.step, PROFILE_STEPS,
+                                                stats["tick_ms_captured_median"],
+                                                f"{arch} {label}, a captured decode step")
+    stats["idle_share_eager"] = profile_card(eager.step, PROFILE_STEPS,
+                                             stats["tick_ms_eager_median"],
+                                             f"{arch} {label}, an eager decode step")
+    del runs, eager, capt
+    stats["idle_share_prefill"] = profile_card(
+        lambda: model.prefill(params, batch, cache_len=cache_len), 1, prefill_ms,
+        f"{arch} {label}, the prefill")
+    print(f"family serving {arch} {label} [{smi}]:", json.dumps(stats), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    with plain_attention(), capture.disabled():
+        p_logits, p_caches, _ = timed_prefill(model, params, batch, cache_len)
+        dec = GreedyDecode(model, params, p_logits.argmax(-1), prompt_rows, p_caches)
+        plain = StepRows(p_logits, decode_run(dec, steps))
+        del dec, p_caches
+    check(not any(read_counts().values()), "the plain run launched a kernel")
+    out_k, out_p = kern.tokens(), plain.tokens()
+    full, near, held, D = compare_served(kern, plain, out_k, out_p)
+    print(f"{arch} {label}: eager tokens vs the plain-attention run: {full} of {B} sequences "
+          f"equal in full, {near} differ after a near-tie (top-2 logit gap <= 2 x {D!r}, the "
+          f"largest logit difference on the matching steps); {held} of {B * (steps + 1)} "
+          f"tokens held equal before each sequence's first near-tie", flush=True)
+    return counts
+
+
+def llava_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """llava-next-34b at its published width and depth (68.9 GB in bf16):
+    at least 70 GiB free before ``init``, the batch chosen from the memory
+    free after it; prompts of 576 seeded patch rows and 512 tokens; its
+    attention sites (G = 7) held and timed; the counted run: 60
+    ``flash_attention`` a prefill, 60 ``decode_attention`` a step."""
+    free, total = torch.cuda.mem_get_info()
+    print(f"{LLAVA_ARCH} [{smi}]: {free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB "
+          "before init", flush=True)
+    check(free >= LLAVA_MIN_FREE_GIB * 2**30,
+          f"{LLAVA_ARCH} needs {LLAVA_MIN_FREE_GIB} GiB free, {free / 2**30:.2f} GiB are")
+    torch.cuda.reset_peak_memory_stats()
+    model, params = build_published(LLAVA_ARCH, dev)
+    cfg = model.cfg
+    check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.frontend_tokens, cfg.tp_pad_heads)
+          == ("vlm", "bfloat16", 60, 7168, 56, 8, 128, 20480, 64000, 576, 0), cfg)
+    P = cfg.frontend_tokens
+    prompt_rows = P + LLAVA_PROMPT
+    cache_len = prompt_rows + LLAVA_STEPS + PROFILE_STEPS
+    # a sequence's share at the peaks, with the MLP's transients: its three
+    # caches while the step is captured (the eager run's copy, the captured
+    # run's and the copy GreedyDecode.capture restores), or the plain run's
+    # one cache with the plain attention's three float32 score tensors (the
+    # larger of the two here)
+    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * 2
+    mlp = prompt_rows * cfg.d_ff * 12
+    per_seq = max(3 * cache_len * kv_row, cache_len * kv_row + 3 * cfg.n_heads
+                  * prompt_rows ** 2 * 4) + mlp
+    torch.cuda.empty_cache()  # init's float32 draws, cached by the allocator
+    free = torch.cuda.mem_get_info()[0]
+    B = min(LLAVA_MAX_BATCH, int((free - FAMILY_RESERVE) // per_seq))
+    print(f"{LLAVA_ARCH}: {free / 2**30:.2f} GiB free after init; {per_seq / 2**30:.3f} GiB "
+          f"a sequence at the peaks ({kv_row} B of K/V a row): batch {B}", flush=True)
+    check(B >= 1, f"{LLAVA_ARCH}: no room for one sequence")
+    gen = torch.Generator(device=dev).manual_seed(FAM_SEED + 1)
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab_size, (B, LLAVA_PROMPT), generator=gen,
+                                device=dev, dtype=torch.int32),
+        "patches": torch.randn((B, P, cfg.d_model), generator=gen, device=dev,
+                               dtype=torch.float32) * 0.01,
+    }
+    calls = record_family(model, params, [(batch, prompt_rows)], LLAVA_STEPS, dev,
+                          lambda name, args, kw: "prefill" if name == "flash_attention"
+                          else "decode")
+    hold_sites(calls, rows)
+    del calls
+    step_bytes = (step_weight_bytes(params)
+                  + B * (prompt_rows + LLAVA_STEPS // 2 + 1) * kv_row)
+    counts = serve_family(model, params, batch, prompt_rows, LLAVA_STEPS, dev, smi,
+                          step_bytes, f"{B} x ({P} patches + {LLAVA_PROMPT} tokens)")
+    L = cfg.n_layers
+    check(counts["flash_attention"] == L and counts["decode_attention"] == L * (2 * LLAVA_STEPS + 1)
+          and all(counts[n] == 0 for n in KERNELS if n not in ATTENTION),
+          f"{LLAVA_ARCH} launches {counts}: want {L} flash_attention a prefill and {L} "
+          "decode_attention a step (the capture's warm-up step too)")
+    print(f"{LLAVA_ARCH} [{smi}]: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return counts
+
+
+def whisper_site(frames: int):
+    def site(name, args, kwargs) -> str:
+        q, k = args[0], args[1]
+        if name == "decode_attention":
+            return "cross decode" if k.shape[1] == frames else f"self decode, {k.shape[1]} rows"
+        if kwargs["causal"]:
+            return f"self prefill, {q.shape[1]} tokens"
+        if q.shape[1] == k.shape[1] == frames:
+            return "encoder"
+        return f"cross prefill, {q.shape[1]} over {k.shape[1]}"
+    return site
+
+
+def whisper_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """whisper-small at its published width and depth: 16 clips of 1,500
+    seeded frames; decoder prompts of 4 tokens (the start-of-transcript
+    sequence) and of 224 (previous-text conditioning), each with 64 greedy
+    steps; its attention sites (D = 64: the 1,500-row encoder, the cross
+    attention over 1,500 rows) held and timed; a counted run a prompt: 36
+    ``flash_attention`` a prefill (12 encoder, 12 self, 12 cross), 24
+    ``decode_attention`` a step (12 self, 12 cross)."""
+    torch.cuda.reset_peak_memory_stats()
+    model, params = build_published(WHISPER_ARCH, dev)
+    cfg = model.cfg
+    check((cfg.family, cfg.dtype, cfg.encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.frontend_tokens, cfg.qkv_bias,
+           cfg.mlp_act) == ("encdec", "bfloat16", 12, 12, 768, 12, 12, 64, 3072, 51865, 1500,
+                            True, "gelu"), cfg)
+    F = cfg.frontend_tokens
+    gen = torch.Generator(device=dev).manual_seed(FAM_SEED + 2)
+    frames = torch.randn((WHISPER_BATCH, F, cfg.d_model), generator=gen, device=dev,
+                         dtype=torch.float32)
+    batches = [({"tokens": torch.randint(0, cfg.vocab_size, (WHISPER_BATCH, S), generator=gen,
+                                         device=dev, dtype=torch.int32), "frames": frames}, S)
+               for S in WHISPER_PROMPTS]
+    hold_sites(record_family(model, params, batches, WHISPER_STEPS, dev, whisper_site(F)),
+                  rows)
+    L, E = cfg.n_layers, cfg.encoder_layers
+    kv_row = L * 2 * cfg.n_kv_heads * cfg.hd * 2
+    counts = dict.fromkeys(KERNELS, 0)
+    for batch, S in batches:
+        step_bytes = (step_weight_bytes(params)
+                      + WHISPER_BATCH * (F + S + WHISPER_STEPS // 2 + 1) * kv_row)
+        got = serve_family(model, params, batch, S, WHISPER_STEPS, dev, smi, step_bytes,
+                           f"{WHISPER_BATCH} clips x {F} frames, {S}-token prompt")
+        check(got["flash_attention"] == E + 2 * L
+              and got["decode_attention"] == 2 * L * (2 * WHISPER_STEPS + 1)
+              and all(got[n] == 0 for n in KERNELS if n not in ATTENTION),
+              f"{WHISPER_ARCH} launches {got}: want {E + 2 * L} flash_attention a prefill and "
+              f"{2 * L} decode_attention a step (the capture's warm-up step too)")
+        for name in KERNELS:
+            counts[name] += got[name]
+    print(f"{WHISPER_ARCH} [{smi}]: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return counts
+
+
+def families_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """llava-next-34b, then (freed) whisper-small, through ``build_model``
+    → ``init`` → ``prefill`` → ``decode``. Returns the counted runs'
+    launches."""
+    counts = llava_phase(dev, smi, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{LLAVA_ARCH} freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    got = whisper_phase(dev, smi, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: counts[name] + got[name] for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -3222,6 +3683,16 @@ def main() -> int:
     for name in KERNELS:
         counts[name] += recurrent[name]
     mark("recurrent phase")
+    # the last families need the card to themselves: every earlier plan,
+    # table and graph freed
+    del prep, session
+    capture.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = families_phase(dev, smi, rows)
+    for name in KERNELS:
+        counts[name] += families[name]
+    mark("families phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():

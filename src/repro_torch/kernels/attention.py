@@ -119,21 +119,22 @@ def lengths_checked():
         _caller.checked = prev
 
 
-def _check_lengths(lengths: torch.Tensor, S: int) -> None:
-    """Every length in [1, S]. Reading them back to the host synchronises
-    with the card, so a tensor that passed is marked with its version
-    counter and not read again until it changes: a decode step hands the
-    same lengths to every layer, and checks them once. A capture cannot
-    read them: there the caller checks (:func:`lengths_checked`), and the
-    check raises otherwise."""
+def check_lengths(lengths: torch.Tensor, S: int, what: str = "decode_attention: lengths"
+                  ) -> None:
+    """Every length in [1, S], else ValueError naming ``what``. Reading
+    them back to the host synchronises with the card, so a tensor that
+    passed is marked with its version counter and not read again until it
+    changes: a decode step hands the same lengths to every layer, and
+    checks them once. A capture cannot read them: there the caller checks
+    (:func:`lengths_checked`), and the check raises otherwise."""
     if getattr(_caller, "checked", False):
         return
     if getattr(lengths, "_raven_checked", None) == (lengths._version, S):
         return
-    refuse_in_capture("decode_attention's check of the lengths")
+    refuse_in_capture(f"the check of {what}")
     lo, hi = (int(x) for x in torch.aminmax(lengths))
     if lo < 1 or hi > S:
-        raise ValueError(f"decode_attention: lengths span [{lo}, {hi}], must lie in [1, {S}]")
+        raise ValueError(f"{what} span [{lo}, {hi}], must lie in [1, {S}]")
     lengths._raven_checked = (lengths._version, S)
 
 
@@ -143,7 +144,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float) -> torch.Ten
     contiguous. Returns (B,H,D) in q's dtype.
 
     A length of 0 would give the plain version's NaN (a softmax over no
-    key), so it raises instead (see :func:`_check_lengths`)."""
+    key), so it raises instead (see :func:`check_lengths`)."""
     _check_operands("decode_attention", (
         (q, "q", 3), (k_cache, "k_cache", 4), (v_cache, "v_cache", 4)))
     _build.require(lengths, "lengths", torch.int32, 1, q.device)
@@ -159,7 +160,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float) -> torch.Ten
     out = torch.empty_like(q)
     if B == 0:
         return out
-    _check_lengths(lengths, S)
+    check_lengths(lengths, S)
     n_split, chunk = decode_splits(S, B, KH)
     # pass 1's partials: acc (B, KH, n_split, G, D), then (m, l) a head
     scratch = torch.empty(B * KH * n_split * (H // KH) * (D + 2), dtype=torch.float32,

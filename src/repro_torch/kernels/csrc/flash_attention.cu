@@ -44,6 +44,9 @@ constexpr int SMEM_BYTES = SMEM_FLOATS * static_cast<int>(sizeof(float));
 
 using T = float;
 
+// WINDOW is a template parameter: a call without a window compiles to a
+// loop with no window tests in it.
+template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
@@ -96,7 +99,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
 
-  const int kv_begin = window > 0 ? max(0, q0 + off - window + 1) / BK * BK : 0;
+  const int kv_begin = WINDOW ? max(0, q0 + off - window + 1) / BK * BK : 0;
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BK) {
     __syncthreads();  // the last tile's readers are done
     for (int i = tid; i < BK * n8; i += THREADS) {
@@ -142,7 +145,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = ty + 16 * i, c = tx + 16 * j;
         const int kp = kv0 + c;
         const bool ok = kp < Skv && (!causal || q0 + r + off >= kp) &&
-                        (window <= 0 || kp > q0 + r + off - window);
+                        (!WINDOW || kp > q0 + r + off - window);
         sP[r * PS + c] = ok ? s[i][j] : NEG_INF;
       }
     __syncthreads();
@@ -218,11 +221,12 @@ extern "C" int raven_flash_attention_f32(const void* q, const void* k, const voi
                                          void* out, int B, int Sq, int Skv, int H, int KH,
                                          int D, float scale, int causal, int window,
                                          void* stream) {
-  static unsigned long long done = 0;
-  const cudaError_t attr = raven_smem_limit(flash_attention_kernel, SMEM_BYTES, &done);
+  static unsigned long long done[2] = {0, 0};
+  auto* kernel = window > 0 ? flash_attention_kernel<true> : flash_attention_kernel<false>;
+  const cudaError_t attr = raven_smem_limit(kernel, SMEM_BYTES, &done[window > 0]);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
+  kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), Sq, Skv, H, KH, D, scale, causal, window);
   RAVEN_RETURN_LAUNCH_STATUS();

@@ -86,6 +86,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long lo
 
 // Two blocks an SM (at most 128 registers a thread, 97 KB of shared memory
 // each): one block's loads, softmax and barriers overlap the other's wgmma.
+// WINDOW is a template parameter so that a call without a window compiles
+// to a loop with no window tests in it (a runtime `window` read in the
+// tile-skip and edge-mask tests cost the window-free path 6-10%).
+template <bool WINDOW>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
@@ -113,7 +117,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   if (causal) kv_end = min(Skv, min(q0 + BM, Sq) + off);
   const int n_tiles = (kv_end + BN - 1) / BN;
   // the first tile holding a key of the block's first row's window
-  const int first_tile = window > 0 ? max(0, q0 + off - window + 1) / BN : 0;
+  const int first_tile = WINDOW ? max(0, q0 + off - window + 1) / BN : 0;
 
   auto load_kv = [&](int j) {
     const uint32_t sK = sKV + (j % STAGES) * 2 * TILE_KV;
@@ -140,7 +144,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const int kv0 = j * BN;
     const uint32_t sK = sKV + (j % STAGES) * 2 * TILE_KV, sV = sK + TILE_KV;
     if ((!causal || kv0 <= wg_first + 63 + off) &&
-        (window <= 0 || kv0 + BN - 1 > wg_first + off - window)) {
+        (!WINDOW || kv0 + BN - 1 > wg_first + off - window)) {
       float s[32];
       wgmma_fence();
 #pragma unroll
@@ -156,13 +160,13 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
       if (kv0 + BN > Skv || (causal && kv0 + BN - 1 > wg_first + off) ||
-          (window > 0 && kv0 <= wg_first + 63 + off - window)) {
+          (WINDOW && kv0 <= wg_first + 63 + off - window)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int col = kv0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
           const int row = row0 + 8 * ((i / 2) % 2);
           if (col >= Skv || (causal && col > row + off) ||
-              (window > 0 && col <= row + off - window))
+              (WINDOW && col <= row + off - window))
             s[i] = NEG_INF;
         }
       }
@@ -249,11 +253,13 @@ extern "C" int raven_flash_attention_bf16(const void* q, const void* k, const vo
                                           void* out, int B, int Sq, int Skv, int H, int KH,
                                           int D, float scale, int causal, int window,
                                           void* stream) {
-  static unsigned long long done = 0;
-  const cudaError_t attr = raven_smem_limit(flash_attention_wgmma_kernel, SMEM_BYTES, &done);
+  static unsigned long long done[2] = {0, 0};
+  auto* kernel = window > 0 ? flash_attention_wgmma_kernel<true>
+                            : flash_attention_wgmma_kernel<false>;
+  const cudaError_t attr = raven_smem_limit(kernel, SMEM_BYTES, &done[window > 0]);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(H, B, (Sq + BM - 1) / BM);
-  flash_attention_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
+  kernel<<<grid, THREADS, SMEM_BYTES, RAVEN_STREAM(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), Sq, Skv, H, KH, D, scale * 1.4426950408889634f, causal,
       window);

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.attention import check_lengths
 from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
 
 _DECODE_WINDOW_TODO = (
@@ -103,6 +104,20 @@ def attention_decode(
     return decode_attention_op(q, k_cache, v_cache, lengths, scale=scale)
 
 
+def decode_rows(lengths: torch.Tensor, S: int) -> torch.Tensor:
+    """``lengths + 1``: the rows each sequence attends once a decode step
+    has written its new K/V row at ``lengths`` of an S-row cache, checked
+    to lie in [1, S] *before* the write. A full cache (a length of S)
+    raises ValueError here; the reference's scatter drops the row silently
+    (JAX's out-of-bounds ``.at[].set``), and an index past the cache would
+    be an IndexError on the CPU and a device-side assert on the card. Under
+    :func:`~repro_torch.kernels.attention.lengths_checked` (a captured
+    step) the caller has checked its host copy and nothing is read."""
+    valid = lengths + 1
+    check_lengths(valid, S, f"a decode step over a cache of {S} rows: lengths + 1")
+    return valid
+
+
 # ---------------------------------------------------------------------------
 # Attention block (projections + rope + attention)
 # ---------------------------------------------------------------------------
@@ -123,6 +138,19 @@ def attn_proj_qkv(p: dict, x: torch.Tensor, cfg) -> tuple:
         k.reshape(B, S, KH, hd),
         v.reshape(B, S, KH, hd),
     )
+
+
+def attn_proj_kv(p: dict, x: torch.Tensor, cfg) -> tuple:
+    """The K and V of :func:`attn_proj_qkv` without its query: a cross
+    attention's cache, whose query comes from the decoder."""
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    k = x @ p["wk_col"]
+    v = x @ p["wv_col"]
+    if cfg.qkv_bias:
+        k = k + p["bk_col"]
+        v = v + p["bv_col"]
+    B, S = x.shape[0], x.shape[1]
+    return k.reshape(B, S, KH, hd), v.reshape(B, S, KH, hd)
 
 
 def expand_heads_for_tp(q, k, v, cfg):
@@ -150,7 +178,8 @@ def attn_block(
     p: dict, x: torch.Tensor, cfg, *, positions, causal=True, window=0,
 ) -> torch.Tensor:
     """Full-sequence attention block (train/prefill). The reference's
-    ``kv_override`` (cross-attention) comes with the encdec family."""
+    ``kv_override`` has no caller on the serving path (whisper's prefill
+    projects its cross K/V itself) and is not ported."""
     B, S, _ = x.shape
     q, k, v = attn_proj_qkv(p, x, cfg)
     if cfg.rope_theta > 0:

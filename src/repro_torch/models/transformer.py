@@ -1,11 +1,12 @@
-"""Decoder stacks (dense and moe): parameter shape trees, prefill and one
-decode step.
+"""Transformer stacks: parameter shape trees, the decoder's prefill and
+one decode step (dense, moe and vlm), and whisper's encoder.
 
 The reference scans one traced layer body over the stacked parameter tree;
 here each stack is a Python loop over the same stacked leaves, layer ``l``
 reading the views ``w[l]``. A moe layer's MLP is :func:`moe_ffn`. The
-encoder and enc-dec stacks, and the training forward, come with their
-ROADMAP items.
+enc-dec decoder's prefill and decode step live with their family in
+``models/zoo.py``, as in the reference; its training forward
+(``encdec_decoder_forward``) comes with training.
 """
 from __future__ import annotations
 
@@ -41,14 +42,17 @@ def mlp_param_shapes(cfg: ArchConfig) -> dict:
     return {"wu_col": (D, F), "wd_row": (F, D)}
 
 
-def decoder_layer_shapes(cfg: ArchConfig) -> dict:
-    """A dense or moe decoder layer (the enc-dec cross-attention comes with
-    its family, ROADMAP Queue 1 item 10)."""
+def decoder_layer_shapes(cfg: ArchConfig, cross: bool = False) -> dict:
+    """A decoder layer; ``cross`` adds the enc-dec cross-attention's norm
+    (``ln_x``) and projections (``xattn``)."""
     s = {
         "ln1": (cfg.d_model,),
         "ln2": (cfg.d_model,),
         "attn": attn_param_shapes(cfg),
     }
+    if cross:
+        s["ln_x"] = (cfg.d_model,)
+        s["xattn"] = attn_param_shapes(cfg)
     if cfg.family == "moe":
         s["moe"] = moe_param_shapes(cfg)
     else:
@@ -150,7 +154,7 @@ def decoder_decode_step(
     B = h.shape[0]
     kcs, vcs = kv_caches
     pos = lengths  # 0-based position of the new token
-    valid = lengths + 1  # rows each sequence attends, the new one included
+    valid = L.decode_rows(lengths, kcs.shape[2])  # the new row included; raises if full
     rows = torch.arange(B, device=h.device)
     for i in range(n_stacked(layers_params)):
         lp = layer_params(layers_params, i)
@@ -167,3 +171,20 @@ def decoder_decode_step(
         hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
         h = h + _ffn(lp, hn2[:, None, :], cfg)[:, 0]
     return h, (kcs, vcs)
+
+
+# ---------------------------------------------------------------------------
+# Encoder stack (whisper)
+# ---------------------------------------------------------------------------
+
+
+def encoder_forward(layers_params: dict, h: torch.Tensor, cfg: ArchConfig,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Pre-norm layers of non-causal self-attention (RoPE at ``positions``
+    where ``rope_theta`` > 0, as the reference's ``attn_block``) and an MLP."""
+    for i in range(n_stacked(layers_params)):
+        lp = layer_params(layers_params, i)
+        h = h + L.attn_block(lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+                             positions=positions, causal=False)
+        h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+    return h

@@ -1,5 +1,7 @@
-"""Model zoo: the reference zoo's decoder LMs (dense and moe) and its two
-recurrent families (ssm: xlstm; hybrid: zamba2), on PyTorch.
+"""Model zoo: the reference zoo's ten architectures on PyTorch, every
+family of its registry: the decoder LMs (dense, moe, and vlm with its
+patch projector), the enc-dec whisper (encdec) and the two recurrent
+families (ssm: xlstm; hybrid: zamba2).
 
 Every model exposes the reference's surface for serving:
 
@@ -9,6 +11,16 @@ Every model exposes the reference's surface for serving:
   decode   — one-token step over caches → (logits, caches)
 
 Family notes:
+  llava   decoder LM; vision patches arrive as precomputed embeddings
+          (``batch["patches"]``, (B, 576, d_model)) and a learned
+          projector prepends them to the token sequence, so RoPE positions
+          and ``decode``'s ``lengths`` count the patch rows.
+  whisper enc-dec; the conv frontend is a stub (``batch["frames"]``,
+          precomputed (B, 1500, d_model) frame embeddings). The encoder adds
+          sinusoidal positions and also applies RoPE; the decoder uses RoPE.
+          Prefill returns (self K, self V, cross K, cross V) caches; its
+          and decode's cross-attention query has no bias and no RoPE, as in
+          the reference.
   xlstm   grouped stacks: (slstm_every-1) mLSTM + 1 sLSTM per group.
   zamba2  Mamba2 stack with ONE shared attention+MLP block applied after
           every ``attn_every`` SSM layers (weight sharing), sliding-window
@@ -18,14 +30,15 @@ As in the reference, the two recurrent prefills run the full forward and
 return the last logits with *zeroed* state and caches ("dry-run
 sufficient"), so a decode after a prefill starts from zero state. Decode
 writes the new state and K/V rows into the caches it is given, in place,
-and returns them (the reference returns new arrays).
+and returns them (the reference returns new arrays); a decode step that
+would write past a full K/V cache raises ValueError before the write,
+where the reference drops the row silently.
 
-``build_model`` builds the ``dense``, ``moe``, ``ssm`` and ``hybrid``
-families. The ``vlm`` and ``encdec`` families, and training (``loss``),
-are ROADMAP Queue 1 item 10 and raise until they are ported.
+Training (``loss``) comes with ``train/``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,14 +52,33 @@ from repro_torch.models.transformer import (
     decoder_layer_shapes,
     decoder_prefill,
     embed_lookup,
+    encoder_forward,
     layer_params,
     mlp_param_shapes,
+    n_stacked,
     stack_shapes,
 )
 
 _ONES = ("ln1", "ln2", "ln", "ln_x", "final_norm", "d_skip")  # initialised to ones
 _F32_ZEROS = ("dt_bias", "a_log")  # zeros in float32, whatever the dtype (A = -1)
-_STACKS = ("layers", "mlayers", "slayers")  # stacked per-layer trees
+_STACKS = ("layers", "encoder_layers", "mlayers", "slayers")  # stacked per-layer trees
+
+
+def _enc_frames(cfg: ArchConfig) -> int:  # whisper audio frames (30 s): stub frontend length
+    return cfg.frontend_tokens or 1500
+
+
+def _vlm_patches(cfg: ArchConfig) -> int:  # llava patch embeddings an image: stub frontend
+    return cfg.frontend_tokens or 576
+
+
+def _frontend_input(batch: dict, key: str, rows: int, cfg: ArchConfig) -> torch.Tensor:
+    """The stub frontend's embeddings, ``batch[key]``; a batch without them
+    raises the reference's KeyError, saying what the prefill takes."""
+    if key not in batch:
+        raise KeyError(f"{key}: the {cfg.family} prefill takes precomputed (B, {rows}, "
+                       f"{cfg.d_model}) {key} beside the tokens")
+    return batch[key]
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -90,7 +122,8 @@ def _nest(flat: dict) -> dict:
 class Model(nn.Module):
     """An LM of a built family. Its parameters are a nested dict of tensors
     in the reference's layout (stacked per-layer leaves under ``layers``,
-    or xlstm's ``mlayers`` and ``slayers``); after :meth:`init` the module
+    whisper's ``encoder_layers``, or xlstm's ``mlayers`` and ``slayers``);
+    after :meth:`init` the module
     holds them, one frozen ``nn.Parameter`` a leaf keyed by its path
     (``layers/attn/wq_col``)."""
 
@@ -146,21 +179,30 @@ class Model(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Decoder-LM families (dense, moe)
+# Decoder-LM families (dense, moe, vlm)
 # ---------------------------------------------------------------------------
 
 
 def _lm_shapes(cfg: ArchConfig) -> dict:
-    return {
+    shapes = {
         "embed": (_vp(cfg), cfg.d_model),
         "out_embed": (cfg.d_model, _vp(cfg)),
         "final_norm": (cfg.d_model,),
         "layers": stack_shapes(decoder_layer_shapes(cfg), cfg.n_layers),
     }
+    if cfg.frontend == "vision":
+        shapes["vision_proj_col"] = (cfg.d_model, cfg.d_model)
+    return shapes
 
 
 def _lm_embed_inputs(params, batch, cfg):
-    return embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    """The tokens' embeddings; for the vlm, after the projected patches
+    (``batch["patches"]``, (B, P, d_model), cast to the model's dtype)."""
+    tok_emb = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    if cfg.frontend == "vision":
+        patches = _frontend_input(batch, "patches", _vlm_patches(cfg), cfg).to(_dtype(cfg))
+        return torch.cat([patches @ params["vision_proj_col"], tok_emb], dim=1)
+    return tok_emb
 
 
 def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
@@ -185,6 +227,126 @@ def _lm_decode(params, batch, caches, cfg: ArchConfig):
     return _head(h, params, cfg), caches
 
 
+
+# ---------------------------------------------------------------------------
+# Whisper (encdec)
+# ---------------------------------------------------------------------------
+
+
+def _whisper_shapes(cfg: ArchConfig) -> dict:
+    enc_layer = {
+        "ln1": (cfg.d_model,),
+        "ln2": (cfg.d_model,),
+        "attn": attn_param_shapes(cfg),
+        "mlp": mlp_param_shapes(cfg),
+    }
+    return {
+        "embed": (_vp(cfg), cfg.d_model),
+        "out_embed": (cfg.d_model, _vp(cfg)),
+        "final_norm": (cfg.d_model,),
+        "enc_final_norm": (cfg.d_model,),
+        "encoder_layers": stack_shapes(enc_layer, cfg.encoder_layers),
+        "layers": stack_shapes(decoder_layer_shapes(cfg, cross=True), cfg.n_layers),
+    }
+
+
+def _sinusoid(S: int, D: int) -> np.ndarray:
+    """Sinusoidal positions (S, D) float32, computed in numpy in the
+    reference's order of operations (so its bits are the reference's)."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(D // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / D))
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
+
+
+def _whisper_encode(params, frames, cfg: ArchConfig):
+    """frames (B, Se, d_model) plus the sinusoid, in the model's dtype;
+    the encoder stack; its final norm."""
+    B, Se, D = frames.shape
+    dt = _dtype(cfg)
+    sin = torch.from_numpy(_sinusoid(Se, D)).to(device=frames.device, dtype=dt)
+    h = frames.to(dt) + sin[None]
+    positions = torch.arange(Se, device=frames.device)[None, :].expand(B, Se)
+    h = encoder_forward(params["encoder_layers"], h, cfg, positions)
+    return L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_query(lp, hn, cfg: ArchConfig):
+    """The cross-attention query: ``hn @ xattn.wq_col``, with no bias and no
+    RoPE, as the reference's prefill and decode compute it (its training
+    forward adds the bias)."""
+    q = hn @ lp["xattn"]["wq_col"]
+    return q.reshape(*hn.shape[:-1], cfg.n_heads, cfg.hd)
+
+
+def _whisper_prefill(params, batch, cfg: ArchConfig, cache_len=None):
+    """Encode the frames, project each decoder layer's cross K/V from the
+    encoder's output (biases, no RoPE), then run the decoder over the
+    prompt: causal self-attention with RoPE, cross-attention over the
+    encoder rows, the MLP. Returns the last logits and (self K, self V,
+    cross K, cross V): (L, B, cache_len, KH, hd) self caches, zero past the
+    prompt, and (L, B, Se, KH, hd) cross caches."""
+    enc = _whisper_encode(params, _frontend_input(batch, "frames", _enc_frames(cfg), cfg), cfg)
+    layers = params["layers"]
+    n_layers = n_stacked(layers)
+    B, Se, _ = enc.shape
+    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    S = h.shape[1]
+    cache_len = cache_len or S
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    kcs = torch.zeros((n_layers, B, cache_len, KH, hd), dtype=h.dtype, device=h.device)
+    vcs = torch.zeros_like(kcs)
+    xk = torch.empty((n_layers, B, Se, KH, hd), dtype=h.dtype, device=h.device)
+    xv = torch.empty_like(xk)
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    for i in range(n_layers):
+        lp = layer_params(layers, i)
+        xk[i], xv[i] = L.attn_proj_kv(lp["xattn"], enc, cfg)
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_proj_qkv(lp["attn"], hn, cfg)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+        att = L.attention_chunked(q, k, v, causal=True)
+        h = h + att.reshape(B, S, -1) @ lp["attn"]["wo_row"]
+        qx = _cross_query(lp, L.rmsnorm(h, lp["ln_x"], cfg.norm_eps), cfg)
+        attx = L.attention_chunked(qx, xk[i], xv[i], causal=False)
+        h = h + attx.reshape(B, S, -1) @ lp["xattn"]["wo_row"]
+        h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+        kcs[i, :, :S] = k
+        vcs[i, :, :S] = v
+    h = L.rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
+    return _head(h, params, cfg), (kcs, vcs, xk, xv)
+
+
+def _whisper_decode(params, batch, caches, cfg: ArchConfig):
+    """One token for every sequence: its self K/V row written at
+    ``lengths`` (in place), self-attention over lengths + 1 rows,
+    cross-attention over every encoder row. A full self cache raises
+    (:func:`~repro_torch.models.layers.decode_rows`)."""
+    kcs, vcs, xk, xv = caches
+    tokens, lengths = batch["tokens"], batch["lengths"]
+    B = tokens.shape[0]
+    h = embed_lookup(params["embed"], tokens[:, None])[:, 0].to(_dtype(cfg))
+    valid = L.decode_rows(lengths, kcs.shape[2])
+    enc_len = torch.full((B,), xk.shape[2], dtype=torch.int32, device=h.device)
+    rows = torch.arange(B, device=h.device)
+    for i in range(n_stacked(params["layers"])):
+        lp = layer_params(params["layers"], i)
+        hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)[:, None]
+        q, k, v = L.attn_proj_qkv(lp["attn"], hn, cfg)
+        q = L.rope(q, lengths[:, None], cfg.rope_theta)
+        k = L.rope(k, lengths[:, None], cfg.rope_theta)
+        kcs[i][rows, lengths] = k[:, 0]
+        vcs[i][rows, lengths] = v[:, 0]
+        att = L.attention_decode(q[:, 0], kcs[i], vcs[i], valid)
+        h = h + att.reshape(B, -1) @ lp["attn"]["wo_row"]
+        qx = _cross_query(lp, L.rmsnorm(h, lp["ln_x"], cfg.norm_eps), cfg)
+        attx = L.attention_decode(qx, xk[i], xv[i], enc_len)
+        h = h + attx.reshape(B, -1) @ lp["xattn"]["wo_row"]
+        h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps)[:, None],
+                            cfg)[:, 0]
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _head(h, params, cfg), caches
 
 
 # ---------------------------------------------------------------------------
@@ -404,22 +566,14 @@ def _zamba_decode(params, batch, caches, cfg: ArchConfig):
 _FAMILIES = {
     "dense": (_lm_shapes, _lm_prefill, _lm_decode),
     "moe": (_lm_shapes, _lm_prefill, _lm_decode),
+    "vlm": (_lm_shapes, _lm_prefill, _lm_decode),
+    "encdec": (_whisper_shapes, _whisper_prefill, _whisper_decode),
     "ssm": (_xlstm_shapes, _xlstm_prefill, _xlstm_decode),
     "hybrid": (_zamba_shapes, _zamba_prefill, _zamba_decode),
-}
-
-_NOT_PORTED = {
-    "vlm": "the vlm family (vision projector)",
-    "encdec": "the encdec family (whisper)",
 }
 
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family in _FAMILIES:
         return Model(cfg)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {_NOT_PORTED[cfg.family]} is not ported yet "
-            "(ROADMAP Queue 1 item 10)"
-        )
     raise ValueError(cfg.family)

@@ -38,6 +38,21 @@ from repro_torch.kernels import _build
 from repro_torch.models.zoo import _dtype
 
 
+# why each family the engine does not drive is refused
+_REFUSED = {
+    "vlm": ("refused: its prefill takes the image's patch embeddings (batch['patches']) "
+            "beside the tokens, and requests carry tokens only (the reference's engine "
+            "admits the family, but its first prefill raises KeyError: 'patches')"),
+    "encdec": ("refused, as by the reference's engine: its prefill takes the audio's "
+               "frame embeddings (batch['frames']) and its decode a cross cache beside "
+               "the slots' K/V"),
+    "ssm": ("refused, as by the reference's engine: its caches are recurrent state, not "
+            "K/V slots"),
+    "hybrid": ("refused, as by the reference's engine: its caches are recurrent state and "
+               "a ring of window rows, not K/V slots"),
+}
+
+
 @dataclass
 class Request:
     prompt: list[int]
@@ -54,10 +69,9 @@ class ServeEngine:
                  device=None):
         if model.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                "ServeEngine drives the dense and moe decoder LMs: the ssm and "
-                "hybrid families are refused, as by the reference's engine (drive "
-                "them through build_model → prefill → decode); vlm and encdec are "
-                "ROADMAP Queue 1 item 10"
+                f"ServeEngine drives the dense and moe decoder LMs; {model.cfg.name} "
+                f"({model.cfg.family}) is {_REFUSED[model.cfg.family]}. Drive it "
+                "through build_model → init → prefill → decode"
             )
         self.device = resolve_device(device)
         leaf = params["embed"]

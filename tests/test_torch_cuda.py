@@ -28,7 +28,13 @@ recurrent families: ``flash_attention`` with a sliding window against its
 plain version (D of 64, 112 and 128, windows below and above S, at
 zamba2-7b's 8,192-token prefill), ``decode_attention`` at zamba2-7b's tick
 (D = 112, G = 1), and the reduced xlstm-350m and zamba2-7b (head dim 112)
-prefilled and decoded on the card against their CPU run.
+prefilled and decoded on the card against their CPU run. The vlm and encdec
+families: both attention kernels at G = 7 (llava-next-34b's H = 56 over
+KH = 8) and at whisper-small's D = 64 (the 1,500-row encoder, cross
+attention of 4 and 224 queries over 1,500 rows, decode over the 1,500-row
+cross cache); the reduced llava and whisper on the card against their CPU
+run, and both at their published widths on the kernels against plain
+attention.
 """
 from __future__ import annotations
 
@@ -906,6 +912,200 @@ def test_recurrent_prefill_and_decode_on_the_card_match_the_cpu(dev, name):
             assert LAUNCHES["decode_attention"] == before["decode_attention"] + 3 * 2
     for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
         assert float((a.float() - b.float()).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 512, 512, 32, 8, 128), (2, 300, 300, 56, 8, 128),
+                                   (2, 37, 203, 4, 2, 64), (2, 224, 1500, 12, 12, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_window_free_loop_keeps_the_bits(dev, dtype, shape, causal):
+    """A call without a window runs the kernel compiled without the window's
+    tests; the windowed kernel given a window past Skv masks nothing and
+    must give the same bits (the window-free path's arithmetic is the
+    loop's, only its tests are gone)."""
+    from repro_torch.kernels import _build
+
+    B, Sq, Skv, H, KH, D = shape
+    if causal and Sq > Skv:
+        return
+    rng = np.random.default_rng(Sq + Skv + H)
+    q = _normal(rng, (B, Sq, H, D), dtype, dev)
+    k = _normal(rng, (B, Skv, KH, D), dtype, dev)
+    v = _normal(rng, (B, Skv, KH, D), dtype, dev)
+    free = ops.flash_attention_op(q, k, v, causal=causal)
+    wide = torch.empty_like(q)
+    entry = getattr(_build.lib(), "raven_flash_attention_bf16" if dtype == torch.bfloat16
+                    else "raven_flash_attention_f32")
+    _build.check("flash_attention", entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), wide.data_ptr(), B, Sq, Skv, H, KH, D,
+        1.0 / D ** 0.5, int(causal), Skv + 64, _build.stream_ptr(dev)))
+    assert torch.equal(free, wide)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Skv", [(2, 200, 200), (1, 1088, 1088), (2, 37, 203)])
+def test_flash_attention_kernel_at_g7(dev, dtype, causal, B, Sq, Skv):
+    """llava-next-34b's heads: H = 56 over KH = 8 (G = 7, an odd count of
+    query heads a KV head), D = 128; its prefill of 576 patch rows and 512
+    tokens (1,088), a ragged square and Sq < Skv."""
+    rng = np.random.default_rng(Sq + Skv + causal)
+    q = _normal(rng, (B, Sq, 56, 128), dtype, dev)
+    k = _normal(rng, (B, Skv, 8, 128), dtype, dev)
+    v = _normal(rng, (B, Skv, 8, 128), dtype, dev)
+    got = ops.flash_attention_op(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert _attention_err(got, want, dtype) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq", [(16, 1500), (16, 4), (16, 224), (2, 1500)])
+def test_flash_attention_kernel_at_whispers_sites(dev, dtype, B, Sq):
+    """whisper-small's non-causal attention at D = 64, H = KH = 12, over the
+    1,500 encoder rows (no multiple of a tile: the last K/V tile is ragged):
+    the encoder (1,500 queries) and the cross attention of a 4- and a
+    224-token prompt. float32 at B = 2 and 16."""
+    if dtype == torch.float32 and Sq == 1500 and B == 16:
+        B = 4
+    rng = np.random.default_rng(Sq + B)
+    q = _normal(rng, (B, Sq, 12, 64), dtype, dev)
+    k = _normal(rng, (B, 1500, 12, 64), dtype, dev)
+    v = _normal(rng, (B, 1500, 12, 64), dtype, dev)
+    before = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, causal=False)
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert _attention_err(got, want, dtype) <= ATOL[dtype]
+    assert torch.equal(got, ops.flash_attention_op(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_g7(dev, dtype):
+    """llava-next-34b's decode: 8 sequences over a 1,124-row cache, H = 56
+    over KH = 8 (G = 7 rows of the tensor-core kernel's m16 fragment),
+    D = 128; lengths ragged, full and of one row, with NaN past each
+    length."""
+    rng = np.random.default_rng(7)
+    B, S = 8, 1124
+    q = _normal(rng, (B, 56, 128), dtype, dev)
+    k = _normal(rng, (B, S, 8, 128), dtype, dev)
+    v = _normal(rng, (B, S, 8, 128), dtype, dev)
+    for lengths in ([1089, 1100, 1120, 1124, 1, 64, 65, 700], [S] * B):
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kn, vn = k.clone(), v.clone()
+        for b, n in enumerate(lengths.tolist()):
+            kn[b, n:] = float("nan")
+            vn[b, n:] = float("nan")
+        got = ops.decode_attention_op(q, kn, vn, lengths)
+        want = ref.decode_attention_ref(q, k, v, lengths)
+        assert _attention_err(got, want, dtype) <= ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("full", [True, False], ids=["every-length-1500", "ragged"])
+def test_decode_attention_kernel_over_whispers_cross_cache(dev, dtype, full):
+    """whisper-small's cross attention in decode: 16 clips over their 1,500
+    encoder rows, H = KH = 12 (G = 1), D = 64. ``decode_splits`` cuts the
+    cache into chunks of whole 64-row tiles, so the last split is ragged;
+    the call repeats bit for bit."""
+    from repro_torch.kernels.attention import SPLIT_TILE, decode_splits
+
+    n_split, chunk = decode_splits(1500, 16, 12)
+    assert chunk % SPLIT_TILE == 0 and n_split * chunk >= 1500 and 1500 % chunk
+    rng = np.random.default_rng(1500 + full)
+    q = _normal(rng, (16, 12, 64), dtype, dev)
+    k = _normal(rng, (16, 1500, 12, 64), dtype, dev)
+    v = _normal(rng, (16, 1500, 12, 64), dtype, dev)
+    lengths = np.full(16, 1500) if full else rng.integers(1, 1501, size=16)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = ops.decode_attention_op(q, k, v, lengths)
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    assert _attention_err(got, want, dtype) <= ATOL[dtype]
+    assert torch.equal(got, ops.decode_attention_op(q, k, v, lengths))
+
+
+def _to(tree, d):
+    return {k: _to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
+
+
+def _family_batch(cfg, B: int, S: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    key = "patches" if cfg.family == "vlm" else "frames"
+    return {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, size=(B, S)),
+                                   dtype=torch.int32),
+            key: torch.tensor(rng.normal(size=(B, cfg.frontend_tokens, cfg.d_model)) * 0.5,
+                              dtype=torch.float32)}
+
+
+def _prefill_and_decode(model, params, batch, d, steps: int):
+    """The prefill (caches with ``steps`` rows of room) and ``steps`` greedy
+    decode steps on device ``d``: every step's logits and the last caches,
+    on the CPU."""
+    rows = batch["tokens"].shape[1] + (model.cfg.frontend_tokens
+                                       if model.cfg.family == "vlm" else 0)
+    logits, caches = model.prefill(params, {k: v.to(d) for k, v in batch.items()},
+                                   cache_len=rows + steps)
+    out = [logits.cpu()]
+    for t in range(steps):
+        lengths = torch.full((logits.shape[0],), rows + t, dtype=torch.int32, device=d)
+        logits, caches = model.decode(params, {"tokens": logits.argmax(-1).to(torch.int32),
+                                               "lengths": lengths}, caches)
+        out.append(logits.cpu())
+    return out, [c.cpu() for c in caches]
+
+
+@pytest.mark.parametrize("name", ["llava-next-34b", "whisper-small"])
+def test_reduced_vlm_and_encdec_on_the_card_match_the_cpu(dev, name):
+    """The reduced llava-next-34b and whisper-small in float32, the same
+    weights on both devices: prefill and three greedy decode steps' logits
+    and every cache within 1e-4 (float32 sums in other orders), the
+    attention kernels launched on the card (whisper: the encoder's, the
+    decoder's self and cross attention)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(name)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = _family_batch(cfg, 3, 20, seed=5)
+    want = _prefill_and_decode(model, params, batch, "cpu", 3)
+    before = dict(LAUNCHES)
+    got = _prefill_and_decode(model, _to(params, dev), batch, dev, 3)
+    flash = cfg.n_layers + (cfg.encoder_layers + cfg.n_layers if name == "whisper-small" else 0)
+    decode = 3 * cfg.n_layers * (2 if name == "whisper-small" else 1)
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + flash
+    assert LAUNCHES["decode_attention"] == before["decode_attention"] + decode
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name,n_layers", [("llava-next-34b", 2), ("whisper-small", 12)])
+def test_full_width_vlm_and_encdec_on_the_kernels_match_plain_attention(dev, name, n_layers,
+                                                                        monkeypatch):
+    """At the published widths in float32 (llava-next-34b cut to 2 of its
+    60 layers: d_model 7,168, H = 56 over KH = 8, 576 patch rows; whisper-
+    small whole: 12 + 12 layers, D = 64, 1,500 frames), the prefill and
+    three greedy decode steps on the hand-written kernels and on the plain
+    attention: every logit within 1e-3 of the largest, the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = _family_batch(cfg, 2, 64 if name == "llava-next-34b" else 4, seed=6)
+    got = _prefill_and_decode(model, params, batch, dev, 3)[0]
+    monkeypatch.setattr(ops, "_route", lambda t, op: False)  # the plain versions
+    before = dict(LAUNCHES)
+    want = _prefill_and_decode(model, params, batch, dev, 3)[0]
+    assert LAUNCHES == before
+    V = cfg.vocab_size
+    for a, b in zip(got, want):
+        a, b = a[:, :V], b[:, :V]
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
 
 
 @pytest.mark.parametrize("dispatch", ["einsum", "scatter"])

@@ -25,7 +25,7 @@ from repro.models.base import SHAPES as JSHAPES
 from repro.models.base import param_count as jparam_count
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.models import build_model, layers, param_count
+from repro_torch.models import build_model, layers, param_count, zoo
 from repro_torch.models.base import SHAPES
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import ServeEngine
@@ -64,18 +64,22 @@ def test_configs_and_param_counts_equal_the_reference(name):
         k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
 
 
-@pytest.mark.parametrize("name", ["granite-3-8b", "qwen2-0.5b", "llama3-405b", "minitron-4b",
-                                  "arctic-480b", "qwen2-moe-a2.7b", "xlstm-350m", "zamba2-7b"])
+@pytest.mark.parametrize("name", ARCHS)
 def test_shape_trees_equal_the_reference(name):
-    """Full published widths, every family the port builds (dense, moe, ssm
-    and hybrid): shapes only, nothing allocated."""
+    """Full published widths, every config of the registry: shapes only,
+    nothing allocated."""
     assert build_model(get_config(name)).shapes == jbuild_model(jget_config(name)).shapes
 
 
-@pytest.mark.parametrize("name", ["whisper-small", "llava-next-34b"])
-def test_build_model_raises_for_families_not_ported(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        build_model(reduced_config(name))
+@pytest.mark.parametrize("name", ARCHS)
+def test_build_model_builds_every_config_of_the_registry(name):
+    """Every family of the reference's registry is built (no family is left
+    unported): the reduced config's model has the reference's shape tree
+    and a prefill and decode of its family."""
+    model = build_model(reduced_config(name))
+    assert model.cfg.family in zoo._FAMILIES
+    assert model.shapes == jbuild_model(jreduced_config(name)).shapes
+    assert (model._prefill, model._decode) == zoo._FAMILIES[model.cfg.family][1:]
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ decode after a prefill starts from zero state in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -276,7 +278,12 @@ def test_both_serve_engines_refuse_the_recurrent_families(name):
 
 
 def test_not_ported_names_only_what_still_raises():
+    """Every family of the registry is ported: ``build_model`` refuses only
+    a family the reference does not have."""
     from repro_torch.models import zoo
 
-    assert sorted(zoo._NOT_PORTED) == ["encdec", "vlm"]
-    assert sorted(zoo._FAMILIES) == ["dense", "hybrid", "moe", "ssm"]
+    assert not hasattr(zoo, "_NOT_PORTED")
+    assert sorted(zoo._FAMILIES) == ["dense", "encdec", "hybrid", "moe", "ssm", "vlm"]
+    cfg = dataclasses.replace(reduced_config("granite-3-8b"), family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        build_model(cfg)
