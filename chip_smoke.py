@@ -75,7 +75,11 @@ registry; and a third path serves an LM through ``build_model(get_config(...)).i
   depths, bf16, random weights drawn on the card from a seed.
 
 Before the moe family, the static-analysis gate ``python -m
-repro_torch.analysis`` runs in a child process on the card.
+repro_torch.analysis`` runs in a child process on the card. Last, a fourth
+path trains qwen2-0.5b at full width through
+``repro_torch.launch.train.train_loop`` (the entry point of ``python -m
+repro_torch.launch.train --full``), resumes it from a checkpoint and
+serves the trained model from its checkpoint through ``ServeEngine``.
 
 In order it
 
@@ -274,12 +278,39 @@ In order it
    capture's warm-up step included), the prefill, the step, tokens per
    second, the bound a step and the card's idle share; the eager run's
    tokens against a plain-attention run up to the first near-tie;
-16. prints the run's total time, the kernel table as one JSON line
+16. the training phase: everything earlier freed; qwen2-0.5b at its
+   published width and depth (24 layers, d_model 896, 14 query heads over
+   2 KV heads of 64, d_ff 4,864, vocab 151,936, bf16 parameters, float32
+   AdamW moments) trained through ``repro_torch.launch.train.train_loop``:
+   4 steps of a global batch of 16 sequences of 4,096 loader tokens, in
+   as few microbatches as the free memory allows, checkpoints at steps 1
+   and 3 (two kept); every loss finite and the loss down by at least 1
+   nat; after the first step every leaf's gradient finite and non-zero and
+   every leaf moved but those whose bf16 spacing absorbs the step (the
+   norm weights, ones); a second ``train_loop(resume=True)`` from step 1's
+   checkpoint repeats steps 2–3 (their losses equal within
+   ``TRAIN_RESUME_TOL``); one step's loss and gradients in bf16 against
+   the same step with float32 parameters (B = 2, S = 1,024), each leaf
+   within its limit (``TRAIN_GRAD_REL_TOL``, ``TRAIN_GRAD_REL_TOL_LEAF``)
+   of its float32 norm, and the same check failing with the attention
+   output detached from the graph in every layer and in each one layer
+   alone (planted faults); the step's time (median, p90), tokens a second, model FLOPs
+   over the step against 989 TFLOP/s, the card's idle share in one
+   profiled step, the peak memory, the loader's time a step and the
+   checkpoint's snapshot and write times and bytes; then step 3's
+   checkpoint loaded with ``load_checkpoint`` and served through
+   ``ServeEngine`` (16 loader prompts of 512 tokens, 32 new tokens):
+   its attention sites (G = 7, D = 64, trained weights) held against the
+   plain versions and timed, the counted run captured (24 launches of each
+   attention kernel an admission and a tick), its tokens equal to the
+   eager run's and held against a plain-attention run up to a near-tie;
+17. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
    included), the LM serving run, the analysis gate's scenarios, the moe
-   serving run, the recurrent runs and the families' runs; ``sites``:
+   serving run, the recurrent runs, the families' runs and the trained
+   model's serving run; ``sites``:
    every site held and timed, the main path's and the extra ones) and,
    last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -295,8 +326,10 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from importlib import import_module
@@ -337,6 +370,32 @@ LLAVA_MIN_FREE_GIB = 70  # its bf16 weights take 64.2 GiB
 FAMILY_RESERVE = 2 * 2**30  # bytes kept free beside the chosen batch
 WHISPER_BATCH, WHISPER_PROMPTS, WHISPER_STEPS = 16, (4, 224), 64
 PROFILE_STEPS = 4  # decode steps profiled after a counted run (cache rows for them)
+TRAIN_ARCH, TRAIN_SEED, TRAIN_LR = "qwen2-0.5b", 0, 1e-3
+# 4 steps, not 8: a step takes ~7.2 s on the H100, so the run is cut in
+# steps, never in width (24 layers of 896, S = 4,096, a global batch of 16)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 16, 4096  # the reference's train_4k length
+TRAIN_CKPT_EVERY = 2  # checkpoints at steps 1 and 3 (train_loop keeps the newest 3)
+TRAIN_MIN_DROP = 1.0  # nats the loss must fall over the 4 steps
+# The resumed run repeats steps 2-3 from step 1's checkpoint on the same
+# batches: the same kernels in the same order give the same bits, unless a
+# reduction somewhere sums in another order (atomics); any such difference
+# is float32 rounding, far under a step's progress (~0.5 nat).
+TRAIN_RESUME_TOL = 1e-3
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 1024  # the bf16 step against float32
+# Each gradient leaf of the bf16 step within its limit, a share of the
+# float32 step's norm of that leaf (||g_bf16 - g_f32|| <= tol * ||g_f32||):
+# TRAIN_GRAD_REL_TOL, but TRAIN_GRAD_REL_TOL_LEAF where named; the loss
+# within TRAIN_LOSS_REL_TOL of the float32 loss (seen 3.8e-5 to 4.4e-4).
+# Every leaf but the key bias sits at 1.5-4.3%. The key bias's gradient is
+# a small difference of large terms (a bias added to every key moves the
+# scores only through RoPE's rotation), so its bf16 error runs 6-15% of its
+# norm; the reference's own bf16 gradient errs most on that leaf too
+# (tests/test_torch_train.py::test_bf16_gradient_error_is_the_reference_s).
+# A leaf the backward drops is at 100%; one layer of 24 dropped, ~20%.
+TRAIN_GRAD_REL_TOL = 0.08
+TRAIN_GRAD_REL_TOL_LEAF = {"layers/attn/bk_col": 0.25}
+TRAIN_LOSS_REL_TOL = 3e-3
+TRAIN_SERVE_NEW = 32  # tokens generated for each of 16 prompts of LM_PROMPT loader tokens
 GATE_TIMEOUT_S = 600
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
@@ -789,14 +848,24 @@ def row_rel_err(got, want) -> float:
     return float(rel.max()) if rel.numel() else 0.0
 
 
+def attention_atol(want) -> float:
+    """The absolute tolerance: 2e-2 in bf16 and 2e-5 in f32 (the reference's
+    kernel-sweep tolerances, for outputs of unit scale), and in bf16 no
+    less than one bf16 step at the output's largest magnitude (0.03125 from
+    4 up: two roundings of one value can differ by a step). Outputs under 4
+    in magnitude, as every random-weight and probe site's, keep 2e-2."""
+    if want.dtype != torch.bfloat16:
+        return 2e-5
+    top = float(want.float().abs().max()) if want.numel() else 0.0
+    return max(2e-2, float(2.0 ** (np.floor(np.log2(top)) - 7))) if top > 0 else 2e-2
+
+
 def attention_errors(got, want) -> tuple[float, float, bool]:
     """(largest absolute error, largest row-relative error, within both
-    tolerances): atol 2e-2 in bf16 and 2e-5 in f32 (the reference's
-    kernel-sweep tolerances), and ``ATT_ROW_REL_TOL``."""
+    tolerances): :func:`attention_atol` and ``ATT_ROW_REL_TOL``."""
     err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     rel = row_rel_err(got, want)
-    tol = 2e-2 if got.dtype == torch.bfloat16 else 2e-5
-    return err, rel, err <= tol and rel <= ATT_ROW_REL_TOL[got.dtype]
+    return err, rel, err <= attention_atol(want) and rel <= ATT_ROW_REL_TOL[got.dtype]
 
 
 def check_attention(got, want, name: str) -> tuple[float, float]:
@@ -806,8 +875,7 @@ def check_attention(got, want, name: str) -> tuple[float, float]:
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     err, rel, ok = attention_errors(got, want)
     check(ok, f"{name} off by {err} ({rel} of a row's norm; tolerances "
-              f"{2e-2 if got.dtype == torch.bfloat16 else 2e-5}, "
-              f"{ATT_ROW_REL_TOL[got.dtype]} of a row's norm)")
+              f"{attention_atol(want)}, {ATT_ROW_REL_TOL[got.dtype]} of a row's norm)")
     return err, rel
 
 
@@ -1477,7 +1545,7 @@ def profile_lm(model, params, requests, dev, tick_ms: float, mode: str) -> None:
     for part, run, n in (("decode tick", full.step, 4),
                          ("prefill of 1 request", single._admit, 1)):
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 run()
@@ -3068,14 +3136,15 @@ def timed_prefill(model, params, batch: dict, cache_len: int | None = None
 
 
 def profile_card(run, n: int, unprofiled_ms: float, label: str) -> float:
-    """``n`` calls of ``run`` under torch.profiler: the card's busy time a
-    call (the sum of its kernels: one stream) against ``unprofiled_ms``, the
-    call's time measured without the profiler (which slows the host).
-    Prints the top kernels; returns the idle share."""
+    """``n`` calls of ``run`` under torch.profiler, the card's activity
+    only: the card's busy time a call (the sum of its kernels: one stream)
+    against ``unprofiled_ms``, the call's time measured without the
+    profiler (which slows the host). Prints the top kernels; returns the
+    idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
@@ -3531,6 +3600,353 @@ def families_phase(dev, smi: str, rows: dict) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Training: qwen2-0.5b at full width, resumed, then served from its checkpoint
+# ---------------------------------------------------------------------------
+
+
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 · active parameters · tokens
+    (forward and backward of every product), plus causal attention's two
+    products over half the S x S scores, forward and backward: 6 · B · S² ·
+    H · D a layer."""
+    from repro_torch.models import active_param_count
+
+    return (6.0 * active_param_count(cfg) * batch * seq
+            + 6.0 * batch * seq ** 2 * cfg.n_heads * cfg.hd * cfg.n_layers)
+
+
+def bf16_absorbs_first_step(p: torch.Tensor, lr: float, weight_decay: float = 0.1) -> bool:
+    """Whether no element of the bf16 leaf ``p`` can move in AdamW's first
+    step: that step changes an element by at most lr · (1 + wd · |p|)
+    (m̂ / sqrt(v̂) is ±1 at step 1), and rounding to bf16 absorbs any change
+    under half the spacing of the values below |p|, 2^(floor(log2 |p|) - 9).
+    The norm weights, ones at init, stay so for lr under ~1.8e-3: the
+    parameters are bf16 with no float32 master copy, as in the reference."""
+    a = p.detach().float().abs()
+    if p.dtype != torch.bfloat16 or not bool((a > 0).all()):
+        return False
+    half = torch.exp2(torch.floor(torch.log2(a)) - 9)
+    return bool((lr * (1 + weight_decay * a) < half).all())
+
+
+class FirstStep:
+    """``train_loop``'s ``on_step``: after the first step, every leaf's
+    gradient (its norm in the step's metrics) finite and non-zero, and every
+    leaf moved from ``initial`` (the same seed's draw) unless bf16 rounding
+    absorbs any first step of its values (:func:`bf16_absorbs_first_step`);
+    each step's grad norm kept."""
+
+    def __init__(self, initial: dict):
+        self.initial = initial
+        self.grad_norm: list[float] = []
+        self.leaf_norms: dict[str, float] = {}
+        self.unmoved: list[str] = []
+
+    def __call__(self, step: int, params: dict, metrics: dict) -> None:
+        from repro_torch.models import zoo
+
+        self.grad_norm.append(float(metrics["grad_norm"]))
+        if self.initial is None:
+            return
+        self.leaf_norms = {k: float(v) for k, v in metrics["grad_norms"].items()}
+        bad = [k for k, v in self.leaf_norms.items() if not (np.isfinite(v) and v > 0)]
+        check(not bad, f"step {step}: leaves without a finite, non-zero gradient: {bad}")
+        leaves = dict(zoo._leaves(params))
+        check(sorted(leaves) == sorted(self.leaf_norms), "a leaf without a gradient norm")
+        still = [k for k, t in leaves.items() if torch.equal(t, self.initial[k])]
+        stuck = [k for k in still if not bf16_absorbs_first_step(self.initial[k], TRAIN_LR)]
+        check(not stuck, f"step {step}: leaves that did not move: {stuck}")
+        self.unmoved = still
+        print(f"train {TRAIN_ARCH}: after step {step} all {len(leaves)} leaves have a finite, "
+              f"non-zero gradient (norms {min(self.leaf_norms.values())!r} to "
+              f"{max(self.leaf_norms.values())!r}); moved: every leaf but {still}, whose "
+              f"values' bf16 spacing absorbs a step of lr {TRAIN_LR}", flush=True)
+        self.initial = None
+
+
+class _CutAttention(dict):
+    """A layer's attention parameters, marked for :func:`detached_attention`."""
+
+
+@contextmanager
+def detached_attention(layer: int | None = None):
+    """A planted fault: the training attention's output cut from the graph
+    in every layer, or in layer ``layer`` only, so wq, wk, wv and their
+    biases (of that layer) get no gradient: what the kernels, which have no
+    backward, would do on the card. One layer is found by its parameters
+    (marked when ``layer_params`` slices them), so the mark holds when a
+    checkpointed layer is recomputed in the backward."""
+    from repro_torch.models import layers, transformer
+
+    real, real_block, real_slice = layers.attention_train, layers.attn_block, transformer.layer_params
+
+    def cut(*a, **k):
+        return real(*a, **k).detach()
+
+    def layer_params(stacked: dict, i: int) -> dict:
+        lp = real_slice(stacked, i)
+        # the slicing recurses through this name: mark only the layer's own dict
+        return {**lp, "attn": _CutAttention(lp["attn"])} if i == layer and "attn" in lp else lp
+
+    def attn_block(p: dict, *a, **k):
+        if not isinstance(p, _CutAttention):
+            return real_block(p, *a, **k)
+        layers.attention_train = cut
+        try:
+            return real_block(p, *a, **k)
+        finally:
+            layers.attention_train = real
+
+    if layer is None:
+        layers.attention_train = cut
+    else:
+        transformer.layer_params, layers.attn_block = layer_params, attn_block
+    try:
+        yield
+    finally:
+        layers.attention_train, layers.attn_block = real, real_block
+        transformer.layer_params = real_slice
+
+
+def step_grads(cfg, params: dict, batch: dict) -> tuple[float, dict[str, torch.Tensor]]:
+    """One step's loss and gradients (by leaf path) for ``cfg``'s dtype;
+    ``params`` are cast to it first (a copy) where they differ."""
+    from repro_torch.models import build_model, zoo
+    from repro_torch.train.step import loss_and_grads
+
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    cast = zoo._nest({k: t.to(dt) for k, t in zoo._leaves(params)})
+    loss, grads = loss_and_grads(build_model(cfg).loss, cast, batch)
+    return float(loss), dict(zoo._leaves(grads))
+
+
+def rel_errors(got: dict, want: dict) -> dict[str, float]:
+    """Each leaf's ||got - want|| / ||want||."""
+    return {k: float(torch.linalg.vector_norm(got[k].float() - w) / torch.linalg.vector_norm(w))
+            for k, w in want.items()}
+
+
+def grad_limit(leaf: str) -> float:
+    return TRAIN_GRAD_REL_TOL_LEAF.get(leaf, TRAIN_GRAD_REL_TOL)
+
+
+def past_limits(errs: dict[str, float]) -> dict[str, float]:
+    """The leaves whose error passes their limit, each with error / limit."""
+    return {k: e / grad_limit(k) for k, e in sorted(errs.items()) if e > grad_limit(k)}
+
+
+def precision_check(cfg, params: dict, dev, smi: str) -> dict:
+    """One step's loss and gradients in bf16 on ``params`` against the same
+    step with the parameters cast to float32 (a float32 model: float32
+    products), at B = 2, S = 1,024 on loader tokens: the loss within
+    TRAIN_LOSS_REL_TOL and each leaf's gradient within its limit
+    (:func:`grad_limit`) of its float32 norm. The bf16 step with a planted
+    fault must fail the gradient check: the attention output detached in
+    every layer, and in each one layer alone."""
+    from repro_torch.data.loader import TokenLoader
+
+    np_batch = TokenLoader(global_batch=TRAIN_CHECK_BATCH, seq_len=TRAIN_CHECK_SEQ,
+                           vocab=cfg.vocab_size, seed=TRAIN_SEED).batch(100)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    l32, g32 = step_grads(dataclasses.replace(cfg, dtype="float32"), params, batch)
+    l16, g16 = step_grads(cfg, params, batch)
+    loss_err = abs(l16 - l32) / abs(l32)
+    errs = rel_errors(g16, g32)
+    del g16
+    worst = max(errs, key=lambda k: errs[k] / grad_limit(k))
+    print(f"train {TRAIN_ARCH} [{smi}]: bf16 step vs float32 step at B = {TRAIN_CHECK_BATCH}, "
+          f"S = {TRAIN_CHECK_SEQ}: loss {l16!r} vs {l32!r} (rel err {loss_err!r}); gradient "
+          "rel norm err by leaf " + json.dumps(errs), flush=True)
+    check(loss_err <= TRAIN_LOSS_REL_TOL, f"bf16 loss off by {loss_err!r} of the float32 loss")
+    check(not past_limits(errs), f"bf16 gradients off the float32 ones past their limits "
+          f"{TRAIN_GRAD_REL_TOL} ({TRAIN_GRAD_REL_TOL_LEAF} where named): {past_limits(errs)}")
+    # where the q/k gradients sit: a one-layer fault past layer 0 shows in v and ln1
+    share0 = {k: float(torch.linalg.vector_norm(w[0]) / torch.linalg.vector_norm(w))
+              for k, w in g32.items() if k.startswith("layers/attn/")}
+    print(f"train {TRAIN_ARCH}: layer 0's share of each attention leaf's float32 gradient "
+          "norm " + json.dumps(share0), flush=True)
+    planted = {}
+    for layer in (None, *range(cfg.n_layers)):
+        with detached_attention(layer):
+            _, f_grads = step_grads(cfg, params, batch)
+        failing = past_limits(rel_errors(f_grads, g32))
+        del f_grads
+        what = "every layer" if layer is None else f"layer {layer}"
+        check(failing, f"the planted fault (attention detached in {what}) passed the "
+              "gradient check")
+        planted[what] = failing
+    print("planted fault training attention detached in every layer: leaves past their "
+          "limits (error / limit): " + json.dumps(planted.pop("every layer")), flush=True)
+    weakest = min(planted, key=lambda w: max(planted[w].values()))
+    print(f"planted fault training attention detached in one layer: each of the "
+          f"{cfg.n_layers} faults fails; the leaves past their limits (error / limit) by "
+          "layer " + json.dumps(planted), flush=True)
+    return {"loss_rel_err": loss_err, "grad_rel_err_max": errs[worst], "grad_rel_err_leaf": worst,
+            "grad_rel_err": errs, "layer0_grad_share": share0,
+            "planted_one_layer_weakest": weakest,
+            "planted_one_layer_weakest_ratio": max(planted[weakest].values())}
+
+
+def serve_trained(model, params: dict, dev, smi: str, rows: dict) -> dict[str, int]:
+    """The trained model served through ``ServeEngine``: 16 prompts of
+    LM_PROMPT loader tokens, TRAIN_SERVE_NEW new tokens each, one admission.
+    An eager run records the attention sites (held and timed into
+    ``rows``); the counted run's tick is captured and must serve the eager
+    run's tokens; the eager tokens are held against a plain-attention run
+    up to a near-tie. Returns the counted run's launches."""
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.exec import capture
+
+    cfg = model.cfg
+    prompts = TokenLoader(global_batch=LM_SLOTS, seq_len=LM_PROMPT, vocab=cfg.vocab_size,
+                          seed=TRAIN_SEED + 1).batch(0)["tokens"]
+    requests = [(row.tolist(), TRAIN_SERVE_NEW) for row in prompts]
+    with Recorder() as rec, capture.disabled():
+        eager, eager_out, eager_wall = serve_lm(model, params, requests, dev, recorder=rec)
+    hold_sites([(name, f"{TRAIN_ARCH} trained, {label[3:]}", args, kw)
+                for name, label, args, kw in rec.calls], rows)
+    del rec
+    zero_counts()
+    traced, outputs, wall = serve_lm(model, params, requests, dev)
+    counts = read_counts()
+    stats = report_lm(traced, outputs, wall, f"{TRAIN_ARCH} trained, tick captured [{smi}]")
+    report_lm(eager, eager_out, eager_wall, f"{TRAIN_ARCH} trained, tick eager [{smi}]")
+    eng, L = traced.engine, cfg.n_layers
+    check(counts["flash_attention"] == L * stats["admissions"]
+          and counts["decode_attention"] == L * (stats["ticks"] + eng.captures)
+          and eng.captures == 1 and all(counts[n] == 0 for n in KERNELS if n not in ATTENTION),
+          f"trained {TRAIN_ARCH} launches {counts} for {stats['admissions']} admissions and "
+          f"{stats['ticks']} ticks (and {eng.captures} warm-up) of {L} layers")
+    check(outputs == eager_out, f"trained {TRAIN_ARCH}: the captured tick served other tokens")
+    del traced
+    with plain_attention(), capture.disabled():
+        plain, plain_out, _ = serve_lm(model, params, requests, dev)
+    full, near, held, D = compare_served(eager, plain, eager_out, plain_out)
+    print(f"trained {TRAIN_ARCH}: launches {counts}; captured and eager ticks served the same "
+          f"tokens; eager tokens vs the plain-attention run: {full} of {len(requests)} requests "
+          f"equal in full, {near} differ after a near-tie (top-2 logit gap <= 2 x {D!r}); "
+          f"{held} of {stats['generated_tokens']} tokens held equal before each request's "
+          "first near-tie", flush=True)
+    return counts
+
+
+def training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """qwen2-0.5b trained at full width through ``train_loop``, resumed from
+    its first checkpoint, held in bf16 against float32, then served from its
+    last checkpoint. Returns the serving run's launches (training reaches no
+    kernel: the loss path attends through ``attention_train``)."""
+    from repro_torch.checkpoint import load_checkpoint, restore_onto_device
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model, zoo
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.family, cfg.dtype, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.qkv_bias, cfg.optimizer, cfg.optimizer_dtype,
+           cfg.remat) == ("dense", "bfloat16", 24, 896, 14, 2, 64, 4864, 151936, True,
+                          "adamw", "float32", True), cfg)
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    hook = FirstStep(dict(zoo._leaves(build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(TRAIN_SEED), device=dev))))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt, served = os.path.join(root, "ckpt"), os.path.join(root, "served")
+    kw = dict(arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, lr=TRAIN_LR, seed=TRAIN_SEED, ckpt_dir=ckpt, device=dev,
+              log_every=1, print_fn=lambda m: print(f"train {TRAIN_ARCH}: {m}", flush=True))
+    lap_t = [time.perf_counter()]
+
+    def lap(what: str) -> None:  # where the phase's time goes
+        now = time.perf_counter()
+        print(f"training phase: {what} in {now - lap_t[0]:.1f} s", flush=True)
+        lap_t[0] = now
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_loop(ckpt_every=TRAIN_CKPT_EVERY, on_step=hook, **kw)
+        lap("the first run")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = first["losses"]
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses)
+        check(losses[0] - losses[-1] >= TRAIN_MIN_DROP,
+              f"the loss fell {losses[0] - losses[-1]!r} nats over {TRAIN_STEPS} steps")
+        check(hook.initial is None, "the first step was not checked")
+        first_ckpt, last = TRAIN_CKPT_EVERY - 1, TRAIN_STEPS - 1
+        check(sorted(os.listdir(ckpt)) == [f"step_{first_ckpt:08d}", f"step_{last:08d}"],
+              f"checkpoints kept: {sorted(os.listdir(ckpt))}")
+        saved = first["checkpoint"]
+        check(saved["step"] == last and saved["bytes"] > 0, saved)
+        accum, step_s, load_s = first["accum_steps"], first["step_s"], first["load_s"]
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        # resume from the first checkpoint: the last moved aside (and served later)
+        os.makedirs(served)
+        os.rename(os.path.join(ckpt, f"step_{last:08d}"), os.path.join(served, f"step_{last:08d}"))
+        t0 = time.perf_counter()
+        second = train_loop(ckpt_every=0, resume=True, **kw)
+        check(second["accum_steps"] == accum, (second["accum_steps"], accum))
+        resume_wall = time.perf_counter() - t0
+        again = second["losses"]
+        diff = max(abs(a - b) for a, b in zip(again, losses[TRAIN_CKPT_EVERY:]))
+        bitwise = again == losses[TRAIN_CKPT_EVERY:]
+        print(f"train {TRAIN_ARCH}: resumed from step {first_ckpt}, steps "
+              f"{TRAIN_CKPT_EVERY}-{last} losses {again} against "
+              f"{losses[TRAIN_CKPT_EVERY:]}: {'bitwise equal' if bitwise else 'largest diff'} "
+              f"{diff!r}", flush=True)
+        check(len(again) == TRAIN_STEPS - TRAIN_CKPT_EVERY and diff <= TRAIN_RESUME_TOL,
+              f"the resumed losses differ by {diff!r}")
+        params, opt = second["params"], second["opt_state"]
+        lap("the resumed run")
+        precision = precision_check(cfg, params, dev, smi)
+        lap("the bf16 check")
+        # one more step profiled: the card's busy time against the median step
+        step_fn = make_train_step(build_model(cfg), lr=TRAIN_LR, accum_steps=accum)
+        np_batch = TokenLoader(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               vocab=cfg.vocab_size, seed=TRAIN_SEED).batch(TRAIN_STEPS)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+        median_s = float(np.median(step_s[1:]))
+        idle = profile_card(lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1,
+                            1e3 * median_s, f"{TRAIN_ARCH} training step")
+        del params, opt, second, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats = {
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum_steps": accum,
+            "microbatch": TRAIN_BATCH // accum, "losses": losses, "resumed_losses": again,
+            "resume_bitwise": bitwise, "grad_norm": hook.grad_norm,
+            "unmoved_after_step_0": hook.unmoved,
+            "step_s_first": step_s[0], "step_s_median": median_s,
+            "step_s_p90": float(np.percentile(step_s[1:], 90)),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
+            "model_flops_per_step": flops, "bound_step_s": flops / BF16_FLOPS_PER_S,
+            "mfu_bf16": flops / BF16_FLOPS_PER_S / median_s, "idle_share_step": idle,
+            "peak_gib": peak / 2**30, "loader_s_median": float(np.median(load_s)),
+            "checkpoint_snapshot_s": saved["snapshot_s"], "checkpoint_write_s": saved["write_s"],
+            "checkpoint_bytes": saved["bytes"], "first_run_wall_s": wall,
+            "resumed_run_wall_s": resume_wall, **precision,
+        }
+        print(f"training {TRAIN_ARCH} [{smi}]:", json.dumps(stats), flush=True)
+        lap("the profiled step")
+        step, tree, _ = load_checkpoint(served)
+        check(step == last, step)
+        params = restore_onto_device(tree["params"], dev)
+        del tree
+        lap(f"step {last}'s checkpoint loaded")
+        counts = serve_trained(build_model(cfg), params, dev, smi, rows)
+        lap("the trained model served")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3693,6 +4109,10 @@ def main() -> int:
     for name in KERNELS:
         counts[name] += families[name]
     mark("families phase")
+    trained = training_phase(dev, smi, rows)
+    for name in KERNELS:
+        counts[name] += trained[name]
+    mark("training phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():

@@ -1,0 +1,13 @@
+from repro_torch.checkpoint.store import (
+    CheckpointManager,
+    load_checkpoint,
+    restore_onto_device,
+    save_checkpoint,
+)
+
+__all__ = [
+    "CheckpointManager",
+    "save_checkpoint",
+    "load_checkpoint",
+    "restore_onto_device",
+]

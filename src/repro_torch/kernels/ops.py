@@ -198,11 +198,28 @@ def segment_agg_op(vals, w, sid, *, num_segments: int):
 # ---------------------------------------------------------------------------
 
 
+def _refuse_grad(op: str, *ts) -> None:
+    """The attention kernels have no backward: their output, written through
+    ctypes, has no ``grad_fn``, so a gradient through them would be dropped
+    without a word on the card (the plain versions on the CPU would give
+    one). As the reference's ``pallas_call``, which cannot be
+    differentiated, they refuse on every device an input that requires grad
+    while grad mode is on; training attends through
+    ``repro_torch.models.layers.attention_train``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{op}: an input requires grad, and the kernel has no backward; "
+            "train through models.layers.attention_train (attn_block(train=True))"
+        )
+
+
 def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = None,
                        window: int = 0):
     """q:(B,Sq,H,D); k,v:(B,Skv,KH,D), H % KH == 0 → (B,Sq,H,D) in q's
     dtype, float32 sums. The causal mask is offset by Skv − Sq; ``window``
-    > 0 keeps only the ``window`` latest keys of each query's position."""
+    > 0 keeps only the ``window`` latest keys of each query's position.
+    Refuses inputs that require grad (:func:`_refuse_grad`)."""
+    _refuse_grad("flash_attention", q, k, v)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} must be >= 0 (0: none)")
@@ -216,7 +233,9 @@ def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = No
 
 def decode_attention_op(q, k_cache, v_cache, lengths, *, scale: float | None = None):
     """q:(B,H,D); k_cache,v_cache:(B,S,KH,D); lengths:(B,) valid rows of
-    each cache, at least 1 → (B,H,D) in q's dtype, float32 sums."""
+    each cache, at least 1 → (B,H,D) in q's dtype, float32 sums. Refuses
+    inputs that require grad (:func:`_refuse_grad`)."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if _route(q, "decode_attention"):
         from repro_torch.kernels.attention import decode_attention

@@ -4,6 +4,8 @@ Parameters are nested dicts of tensors with *stacked* per-layer leaves (a
 leading L dimension), the reference package's layout; the port runs a layer
 stack as a Python loop over views ``w[l]`` of those leaves. The mesh and
 sharding rules of the reference come with the distributed port.
+:func:`active_param_count` gives a step's model FLOPs (6 · active
+parameters · tokens).
 """
 from __future__ import annotations
 
@@ -136,4 +138,20 @@ def param_count(cfg: ArchConfig) -> int:
         if cfg.encoder_layers:
             total += cfg.encoder_layers * (attn + mlp + 2 * D)
             total += cfg.n_layers * (attn + 2 * D)  # cross-attention
+    return int(total)
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Active params per token (MoE: top-k experts only) — for MODEL_FLOPS."""
+    if cfg.family != "moe":
+        return param_count(cfg)
+    D, L = cfg.d_model, cfg.n_layers
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = D * H * hd + 2 * D * KH * hd + H * hd * D
+    moe_active = cfg.moe_top_k * 3 * D * cfg.d_ff + D * cfg.moe_experts
+    if cfg.moe_shared_experts:
+        moe_active += 3 * D * cfg.moe_shared_d_ff
+    if cfg.moe_dense_residual:
+        moe_active += 3 * D * cfg.d_ff
+    total = 2 * cfg.vocab_size * D + L * (attn + moe_active + 2 * D)
     return int(total)

@@ -15,11 +15,19 @@ calls ``flash_attention_op`` and :func:`attention_decode` calls
 oracles, whose softmax weights stay in float32; the reference's
 ``attention_chunked`` and ``attention_decode`` round q·scale to the cache
 type and the weights to v's type first. The two agree in float32.
+
+Training runs on neither kernel: they have no backward, and refuse inputs
+that require grad. The reference trains through its XLA
+``attention_chunked``, not through its Pallas kernel; the port's
+:func:`attention_train` is that function in torch, on both devices, and
+autograd gives its backward (``attn_block(..., train=True)`` reaches it).
+:func:`xent_loss_chunked` is the reference's sequence-chunked loss.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.attention import check_lengths
 from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
@@ -29,6 +37,7 @@ _DECODE_WINDOW_TODO = (
     "decode keeps a ring buffer of window rows and passes none); the decode "
     "kernel takes no window (ROADMAP Queue 1 item 10)"
 )
+NEG_INF = -1e30
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -83,6 +92,107 @@ def attention_chunked(
             f"Skv={Skv}: the kernel's mask is offset by Skv - Sq"
         )
     return flash_attention_op(q, k, v, causal=causal, scale=scale, window=window)
+
+
+def _mask(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    ok = kp <= qp if causal else torch.ones((q_pos.shape[0], k_pos.shape[0]),
+                                            dtype=torch.bool, device=q_pos.device)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    return ok
+
+
+def _kv_step(m, l, acc, qb, kb, vb, q_pos, k_pos, Skv: int, causal: bool, window: int,
+             masked: bool):
+    """One KV block of the online softmax: the reference's ``kv_step``.
+    qb (B,cq,KH,G,D) and kb, vb (B,ck,KH,D) in the storage type; the scores
+    and sums in float32 (its ``preferred_element_type``). ``masked`` is
+    False for a block whose every (query, key) pair the mask keeps: the
+    reference's ``where`` changes nothing there. The running max is held
+    constant in the backward: the output does not depend on it (it cancels
+    between the sums), so the gradient is the reference's up to rounding,
+    without the max's backward passes over the scores."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), kb.float())
+    if masked:
+        ok = _mask(q_pos, k_pos, causal, window) & (k_pos < Skv)[None, :]
+        s = torch.where(ok, s, NEG_INF)
+    m_new = torch.maximum(m, s.detach().amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+    return m_new, l_new, acc * alpha[..., None] + pv
+
+
+def attention_train(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    scale: float | None = None,
+    q_chunk: int = 512,
+    k_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """The reference's ``attention_chunked``, differentiable: two-level
+    online softmax over ``q_chunk`` query and ``k_chunk`` key blocks, GQA
+    via H % KH == 0, the causal mask and window of its ``_mask``, padded
+    keys masked by ``k_pos < Skv``. Each KV step runs under
+    ``torch.utils.checkpoint`` (its ``jax.checkpoint``): the backward
+    recomputes the block's scores, so a block's residency is its carry.
+
+    q: (B,Sq,H,D); k,v: (B,Skv,KH,D); q_offset: global position of q[0].
+    A block that the mask empties entirely is not computed: after the
+    first block of a causal row (which always holds key 0) it would add
+    exp(-1e30 - m) = 0 to every sum and scale them by exp(0) = 1, and
+    before the first unmasked block of a window it would leave sums that
+    the next block scales by exp(-1e30 - m) = 0, so the output and the
+    gradient are those of the reference's full loop.
+    """
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    cq, ck = min(q_chunk, Sq), min(k_chunk, Skv)
+    pq, pk = (-Sq) % cq, (-Skv) % ck
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    qc = (q.float() * scale).to(k.dtype).reshape(B, nq, cq, KH, G, D)
+    kc = k.reshape(B, nk, ck, KH, D)
+    vc = v.reshape(B, nk, ck, KH, D)
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        lo, hi = q_offset + iq * cq, q_offset + iq * cq + cq - 1
+        q_pos = lo + torch.arange(cq, device=dev)
+        m = torch.full((B, KH, G, cq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KH, G, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KH, G, cq, D), dtype=torch.float32, device=dev)
+        for jk in range(nk):
+            k_lo = jk * ck
+            if causal and k_lo > hi:  # every key after every query
+                continue
+            if window > 0 and k_lo + ck - 1 <= lo - window:  # every key out of every window
+                continue
+            k_hi = k_lo + ck - 1
+            masked = ((causal and k_hi > lo) or (window > 0 and k_lo <= hi - window)
+                      or k_hi >= Skv)
+            k_pos = k_lo + torch.arange(ck, device=dev)
+            m, l, acc = checkpoint(_kv_step, m, l, acc, qc[:, iq], kc[:, jk], vc[:, jk],
+                                   q_pos, k_pos, Skv, causal, window, masked,
+                                   use_reentrant=False)
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])  # (B,KH,G,cq,D)
+    out = torch.stack(outs, dim=1)  # (B,nq,KH,G,cq,D)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * cq, H, D)
+    return out[:, :Sq].to(q.dtype)
 
 
 def attention_decode(
@@ -175,18 +285,20 @@ def expand_heads_for_tp(q, k, v, cfg):
 
 
 def attn_block(
-    p: dict, x: torch.Tensor, cfg, *, positions, causal=True, window=0,
+    p: dict, x: torch.Tensor, cfg, *, positions, causal=True, window=0, train=False,
 ) -> torch.Tensor:
-    """Full-sequence attention block (train/prefill). The reference's
-    ``kv_override`` has no caller on the serving path (whisper's prefill
-    projects its cross K/V itself) and is not ported."""
+    """Full-sequence attention block: the prefill's on the flash-attention
+    kernel, or with ``train`` the differentiable :func:`attention_train`.
+    The reference's ``kv_override`` has no caller on these paths (whisper's
+    prefill projects its cross K/V itself) and is not ported."""
     B, S, _ = x.shape
     q, k, v = attn_proj_qkv(p, x, cfg)
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q, k, v, H = expand_heads_for_tp(q, k, v, cfg)
-    out = attention_chunked(q, k, v, causal=causal, window=window)
+    attend = attention_train if train else attention_chunked
+    out = attend(q, k, v, causal=causal, window=window)
     out = out[:, :, :H].reshape(B, S, cfg.n_heads * cfg.hd)
     return out @ p["wo_row"]
 
@@ -203,14 +315,54 @@ def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding / logits
+# Embedding / logits / loss
 # ---------------------------------------------------------------------------
 
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
+    """The rows of ``embed`` at ``tokens``. ``F.embedding``'s backward sums
+    the rows' gradients by sorting the tokens, without atomics."""
+    return F.embedding(tokens, embed)
 
 
 def lm_logits(x: torch.Tensor, out_embed: torch.Tensor) -> torch.Tensor:
     """x: (B,S,D); out_embed: (D,V) column-parallel."""
     return x @ out_embed
+
+
+def _xent_chunk(xb, lb, out_embed, vocab_size):
+    """(sum of -log p(label), count of valid labels) over one chunk, as the
+    reference's scan step computes them: logits rounded to the storage type
+    by the product, then float32."""
+    logits = (xb @ out_embed).float()
+    Vp = out_embed.shape[1]
+    if vocab_size is not None and vocab_size < Vp:
+        pad = torch.arange(Vp, device=logits.device) >= vocab_size
+        logits = torch.where(pad, NEG_INF, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(lb, min=0)[..., None].long())[..., 0]
+    valid = (lb >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def xent_loss_chunked(x: torch.Tensor, out_embed: torch.Tensor, labels: torch.Tensor,
+                      chunk: int = 512, vocab_size: int | None = None) -> torch.Tensor:
+    """Sequence-chunked softmax cross-entropy, the mean over labels >= 0:
+    each chunk of ``chunk`` positions runs under ``torch.utils.checkpoint``,
+    so the live logits are (B, chunk, V) in float32 and the backward
+    recomputes them. ``vocab_size`` masks the padded vocab columns with
+    -1e30."""
+    B, S, D = x.shape
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(x.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c = checkpoint(_xent_chunk, x[:, sl], labels[:, sl], out_embed, vocab_size,
+                          use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,16 +1,19 @@
-"""Transformer stacks: parameter shape trees, the decoder's prefill and
-one decode step (dense, moe and vlm), and whisper's encoder.
+"""Transformer stacks: parameter shape trees, the decoder's training
+forward, prefill and one decode step (dense, moe and vlm), and whisper's
+encoder.
 
 The reference scans one traced layer body over the stacked parameter tree;
 here each stack is a Python loop over the same stacked leaves, layer ``l``
 reading the views ``w[l]``. A moe layer's MLP is :func:`moe_ffn`. The
 enc-dec decoder's prefill and decode step live with their family in
 ``models/zoo.py``, as in the reference; its training forward
-(``encdec_decoder_forward``) comes with training.
+(``encdec_decoder_forward``) comes with the encdec loss (ROADMAP Queue 1
+item 10).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import ArchConfig
@@ -99,8 +102,42 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Dense decoder: prefill and decode
+# Dense decoder: training forward, prefill and decode
 # ---------------------------------------------------------------------------
+
+
+def _layer_fwd(lp: dict, h: torch.Tensor, cfg: ArchConfig, positions, causal: bool,
+               window: int) -> torch.Tensor:
+    a = L.attn_block(lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+                     positions=positions, causal=causal, window=window, train=True)
+    h = h + a
+    return h + _ffn(lp, L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+
+
+def decoder_forward(
+    layers_params: dict,
+    h: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """The training forward: every layer on :func:`L.attention_train`
+    (differentiable; the kernels have no backward), each under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+    ``jax.checkpoint`` on its scan body), so the backward keeps one
+    (B, S, D) input a layer. The reference's ``mesh``, ``seq_shard`` and
+    ``seq_gather`` shard the sequence over a mesh and have no counterpart
+    on one card."""
+    for i in range(n_stacked(layers_params)):
+        lp = layer_params(layers_params, i)
+        if cfg.remat:
+            h = checkpoint(_layer_fwd, lp, h, cfg, positions, causal, window,
+                           use_reentrant=False)
+        else:
+            h = _layer_fwd(lp, h, cfg, positions, causal, window)
+    return h
 
 
 def decoder_prefill(

@@ -3,10 +3,11 @@ family of its registry: the decoder LMs (dense, moe, and vlm with its
 patch projector), the enc-dec whisper (encdec) and the two recurrent
 families (ssm: xlstm; hybrid: zamba2).
 
-Every model exposes the reference's surface for serving:
+Every model exposes the reference's surface:
 
   shapes   — nested dict of param shapes (per-leaf dtype via cfg.dtype)
   init     — draw the parameters on the device from a seeded generator
+  loss     — train-mode forward → scalar loss (dense, moe and vlm)
   prefill  — full-prompt forward → (last logits, caches)
   decode   — one-token step over caches → (logits, caches)
 
@@ -34,7 +35,11 @@ and returns them (the reference returns new arrays); a decode step that
 would write past a full K/V cache raises ValueError before the write,
 where the reference drops the row silently.
 
-Training (``loss``) comes with ``train/``.
+``loss`` is the reference's ``_lm_loss`` for the decoder LMs (the vlm's
+over the text rows after the projected patches), on the differentiable
+``attention_train``, never on a kernel; the train step in
+``repro_torch.train`` takes its gradients. The ssm, hybrid and encdec
+losses are not ported yet: their ``loss`` raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.models.base import ArchConfig
 from repro_torch.models.transformer import (
     attn_param_shapes,
     decoder_decode_step,
+    decoder_forward,
     decoder_layer_shapes,
     decoder_prefill,
     embed_lookup,
@@ -130,7 +136,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self._shapes, self._prefill, self._decode = _FAMILIES[cfg.family]
+        self._shapes, self._loss, self._prefill, self._decode = _FAMILIES[cfg.family]
         self.shapes = self._shapes(cfg)
         self.leaves = nn.ParameterDict()
 
@@ -171,6 +177,12 @@ class Model(nn.Module):
         """The held leaves as the nested parameter dict (no copies)."""
         return _nest({k: v.data for k, v in self.leaves.items()})
 
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """The train-mode forward's mean cross-entropy over ``batch``'s
+        labels (those below 0 ignored): a float32 scalar. Differentiable in
+        the leaves of ``params`` that require grad."""
+        return self._loss(params, batch, self.cfg)
+
     def prefill(self, params: dict, batch: dict, cache_len: int | None = None):
         return self._prefill(params, batch, self.cfg, cache_len=cache_len)
 
@@ -203,6 +215,30 @@ def _lm_embed_inputs(params, batch, cfg):
         patches = _frontend_input(batch, "patches", _vlm_patches(cfg), cfg).to(_dtype(cfg))
         return torch.cat([patches @ params["vision_proj_col"], tok_emb], dim=1)
     return tok_emb
+
+
+def _lm_loss(params, batch, cfg: ArchConfig):
+    h = _lm_embed_inputs(params, batch, cfg)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    h = decoder_forward(params["layers"], h, cfg, positions=positions,
+                        window=cfg.sliding_window)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.frontend == "vision":  # the loss over the text positions only
+        h = h[:, _vlm_patches(cfg):]
+    return L.xent_loss_chunked(h, params["out_embed"], batch["labels"],
+                               vocab_size=cfg.vocab_size)
+
+
+def _not_ported_loss(params, batch, cfg: ArchConfig):
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family} loss (the reference's "
+        f"{_LOSS_TODO[cfg.family]}) is not ported yet; it comes with the next training "
+        "slice (ROADMAP Queue 1 item 10)")
+
+
+_LOSS_TODO = {"ssm": "_xlstm_loss", "hybrid": "_zamba_loss",
+              "encdec": "_whisper_loss with encdec_decoder_forward"}
 
 
 def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
@@ -562,14 +598,14 @@ def _zamba_decode(params, batch, caches, cfg: ArchConfig):
 # build_model dispatch
 # ---------------------------------------------------------------------------
 
-# family -> (shapes, prefill, decode)
+# family -> (shapes, loss, prefill, decode)
 _FAMILIES = {
-    "dense": (_lm_shapes, _lm_prefill, _lm_decode),
-    "moe": (_lm_shapes, _lm_prefill, _lm_decode),
-    "vlm": (_lm_shapes, _lm_prefill, _lm_decode),
-    "encdec": (_whisper_shapes, _whisper_prefill, _whisper_decode),
-    "ssm": (_xlstm_shapes, _xlstm_prefill, _xlstm_decode),
-    "hybrid": (_zamba_shapes, _zamba_prefill, _zamba_decode),
+    "dense": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
+    "moe": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
+    "vlm": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
+    "encdec": (_whisper_shapes, _not_ported_loss, _whisper_prefill, _whisper_decode),
+    "ssm": (_xlstm_shapes, _not_ported_loss, _xlstm_prefill, _xlstm_decode),
+    "hybrid": (_zamba_shapes, _not_ported_loss, _zamba_prefill, _zamba_decode),
 }
 
 

@@ -1,0 +1,123 @@
+"""Step builders: train_step / prefill_step / serve_step.
+
+The reference jits these; here they are plain functions over the parameter
+dict. The train step turns on ``requires_grad`` on the leaves it trains
+(every leaf of the dict, as the reference differentiates the whole tree),
+takes the gradients with autograd, turns it off again and updates the
+leaves in place: the ``Model``'s frozen parameters share their storage and
+see the update. Gradient accumulation splits the batch along its leading
+dimension into ``accum_steps`` microbatches, scales each microbatch's loss
+by ``1/accum_steps`` inside the differentiated function, and sums the
+gradients into accumulators of the optimizer's dtype, as the reference's
+``lax.scan`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.train.optimizer import (
+    adafactor_init,
+    adafactor_update,
+    adamw_init,
+    adamw_update,
+    tree_leaves,
+    tree_map,
+)
+
+
+def init_opt_state(model, params, materialize: bool = True) -> dict:
+    """The optimizer state of ``model``'s config for ``params``; with
+    ``materialize=False`` the same tree on the ``meta`` device (shapes and
+    dtypes, no memory: the reference's ``jax.eval_shape``)."""
+    cfg = model.cfg
+    init = adamw_init if cfg.optimizer == "adamw" else adafactor_init
+    if materialize:
+        return init(params, cfg.optimizer_dtype)
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+    return init(meta, cfg.optimizer_dtype)
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """Leaves by path, keys sorted at every level (``jax.tree.leaves``'s
+    order, which the reference's ``grad_norm`` sums in)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def loss_and_grads(loss_fn, params, batch, scale: float = 1.0):
+    """``loss_fn(params, batch) * scale`` and its gradient in every leaf of
+    ``params`` (a tree of the same layout, each in its leaf's dtype)."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = loss_fn(params, batch)
+            if scale != 1.0:
+                loss = loss * scale
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+    # a leaf the loss does not reach gets zeros, as under jax.grad
+    it = (torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def make_train_step(model, lr: float = 3e-4, accum_steps: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: ``metrics`` holds the loss (a float32 tensor on the
+    device), ``grad_norm`` over the float32 gradients and ``grad_norms``,
+    each leaf's by its path (``layers/attn/wq_col``)."""
+    cfg = model.cfg
+    update = adamw_update if cfg.optimizer == "adamw" else adafactor_update
+    acc_dtype = torch.bfloat16 if cfg.optimizer_dtype == "bfloat16" else torch.float32
+
+    def train_step(params, opt_state, batch):
+        B = next(iter(batch.values())).shape[0]
+        if B % accum_steps:
+            # the reference's reshape into microbatches refuses it too
+            raise ValueError(f"a batch of {B} does not split into {accum_steps} microbatches")
+        if accum_steps == 1:
+            loss, grads = loss_and_grads(model.loss, params, batch)
+        else:
+            inv = 1.0 / accum_steps
+            n = B // accum_steps
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                                   device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+            for i in range(accum_steps):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, g = loss_and_grads(model.loss, params, mb, scale=inv)
+                tree_map(lambda a, gg: a.add_(gg.to(acc_dtype)), grads, g)
+                loss = loss + l
+                del g
+        params, opt_state = update(grads, opt_state, params, lr=lr)
+        sq = {path: torch.sum(torch.square(g.float())) for path, g in _flat(grads).items()}
+        gnorm = torch.sqrt(sum(sq.values()))
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "grad_norms": {k: torch.sqrt(v) for k, v in sq.items()}}
+
+    return train_step
+
+
+def make_prefill_step(model):
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_serve_step(model):
+    """One decode step: greedy next token + updated caches."""
+
+    def serve_step(params, batch, caches):
+        logits, caches = model.decode(params, batch, caches)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_token, logits, caches
+
+    return serve_step

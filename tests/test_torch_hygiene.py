@@ -41,7 +41,7 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_has_the_expected_layout():
     pkg = ROOT / "src" / "repro_torch"
     for sub in ("ml", "data", "core", "sql", "relational", "exec", "tensor", "kernels",
-                "models", "configs", "serve"):
+                "models", "configs", "serve", "train", "checkpoint", "distributed", "launch"):
         assert (pkg / sub / "__init__.py").exists(), sub
     assert sorted(p.name for p in (pkg / "kernels" / "csrc").glob("*.cu")) == [
         "decode_attention.cu", "errors.cu", "featurize.cu", "flash_attention.cu",
@@ -49,7 +49,8 @@ def test_port_has_the_expected_layout():
     ]
     # the walk below reaches the LM serving path's modules too
     for mod in ("models/zoo.py", "models/layers.py", "models/ssm.py", "configs/granite_3_8b.py",
-                "serve/engine.py", "kernels/attention.py"):
+                "serve/engine.py", "kernels/attention.py", "train/step.py",
+                "checkpoint/store.py", "data/loader.py", "launch/train.py"):
         assert pkg / mod in PORT_FILES, mod
 
 

@@ -75,11 +75,11 @@ def test_shape_trees_equal_the_reference(name):
 def test_build_model_builds_every_config_of_the_registry(name):
     """Every family of the reference's registry is built (no family is left
     unported): the reduced config's model has the reference's shape tree
-    and a prefill and decode of its family."""
+    and a loss, prefill and decode of its family."""
     model = build_model(reduced_config(name))
     assert model.cfg.family in zoo._FAMILIES
     assert model.shapes == jbuild_model(jreduced_config(name)).shapes
-    assert (model._prefill, model._decode) == zoo._FAMILIES[model.cfg.family][1:]
+    assert (model._loss, model._prefill, model._decode) == zoo._FAMILIES[model.cfg.family][1:]
 
 
 # ---------------------------------------------------------------------------
