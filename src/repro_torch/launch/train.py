@@ -46,13 +46,36 @@ MEMORY_RESERVE = 4 * 2**30  # bytes left free beside the chosen microbatch
 def sequence_bytes(cfg, seq: int) -> int:
     """A rough peak of one sequence's training activations: the loss's
     float32 (512, Vp) chunk with its gradient and temporaries, a layer's
-    input kept a layer (remat) or its activations (no remat), and one
-    layer's recomputed MLP and attention blocks."""
+    input kept a layer (remat) or its activations (no remat), and the
+    working set of the layer the backward is in (:func:`_layer_bytes`)."""
     xent = 512 * _vp(cfg) * 18
     kept = cfg.n_layers * seq * cfg.d_model * 2 * (1 if cfg.remat else 12)
-    layer = seq * (cfg.d_ff * 16 + cfg.d_model * 24)
+    return int(xent + kept + _layer_bytes(cfg, seq))
+
+
+def _layer_bytes(cfg, seq: int) -> int:
+    """One layer's activations, recomputed in the backward, by family.
+
+    Attention and MLP (the decoders, zamba2's shared block): the MLP's and
+    projections' activations and a block of float32 attention scores.
+    xlstm: an mLSTM layer's projections and float32 SSD outputs, or an
+    sLSTM layer's per-step checkpoints, which keep each step's carried
+    float32 (c, n, m) and bf16 y_prev beside the (S, 4D) gate inputs.
+    zamba2: a Mamba2 layer's projections, conv and gate activations and
+    float32 SSD output, with one chunk's float32 (Q, Q, H) blocks
+    recomputed; and, since its shared block runs outside any checkpoint
+    (as in the reference), every application's activations kept."""
+    D = cfg.d_model
     attn = cfg.n_heads * min(seq, 512) * min(seq, 1024) * 4 * 8
-    return int(xent + kept + layer + attn)
+    block = seq * (cfg.d_ff * 16 + D * 24) + attn
+    if cfg.family == "ssm":
+        mlstm = seq * D * 40
+        slstm = seq * D * (3 * 4 + 2 + 4 * 2 + 2)
+        return max(mlstm, slstm)
+    if cfg.family == "hybrid":
+        mamba = seq * cfg.d_inner * 32 + cfg.ssm_chunk ** 2 * cfg.ssm_heads * 4 * 6
+        return mamba + cfg.n_layers // cfg.attn_every * block
+    return block
 
 
 def choose_accum_steps(cfg, batch: int, seq: int, device: torch.device) -> int:

@@ -13,6 +13,10 @@ mLSTM is the same machinery with B←k, C←q, the exponential input gate as dt
 and the forget gate as the decay, heads folded into the batch; its
 normaliser is the same SSD with x ≡ 1. sLSTM is a true sequential loop over
 time (scalar memory with per-head recurrent mixing), as in the reference.
+Where autograd records (training), each chunk step and each sLSTM step
+runs under a checkpoint, as the reference's scan bodies run under
+``jax.checkpoint``: the backward recomputes a chunk's decay blocks and a
+step's gates instead of keeping them, and the forward's bits are the same.
 
 Decode steps are one-token recurrent updates against the carried state (and
 Mamba2's conv buffer of K − 1 rows): O(1) in the sequence length. They
@@ -20,10 +24,12 @@ return new state tensors; the model's decode writes them into its caches.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def cc_f(t: torch.Tensor) -> torch.Tensor:
@@ -35,10 +41,45 @@ def _decay(t: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(t, -60.0, 0.0))
 
 
+def _recording(*ts) -> bool:
+    """Whether autograd records an op on any of ``ts`` (None skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _recorded(fn):
+    """``fn`` under ``torch.utils.checkpoint``: the reference's
+    ``jax.checkpoint`` on a scan body. The backward recomputes what ``fn``
+    would keep (an SSD chunk's (B, Q, Q, H) decay blocks, an sLSTM step's
+    gates) from its inputs; the forward's values are ``fn``'s bit for bit.
+    No random op runs inside, so no RNG state is kept."""
+    return partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+
+
 # ---------------------------------------------------------------------------
 # Generic chunked SSD:  h_t = a_t · h_{t-1} + dt_t · (b_t ⊗ x_t),
 #                       y_t = c_t · h_t
 # ---------------------------------------------------------------------------
+
+
+def _ssd_chunk(h, xb, ab, bb, cb, db, mask):
+    """One chunk of the SSD from the carried state h (B,H,N,P) f32: returns
+    (the state after the chunk, the chunk's y (B,Q,H,P) f32)."""
+    L = torch.cumsum(ab, dim=1)  # (B,Q,H)
+    # intra-chunk: W[t,i,h] = exp(L_t - L_i) · (c_t·b_i), i<=t
+    cbm = torch.einsum("bqn,bin->bqi", cb.to(torch.float32), bb.to(torch.float32))
+    decay = _decay(L[:, :, None, :] - L[:, None, :, :])  # (B,Q,Q,H)
+    W = cbm[..., None] * decay * mask[None, :, :, None]
+    xt = xb.to(torch.float32) * db[..., None]  # (B,Q,H,P)
+    y_intra = torch.einsum("bqih,bihp->bqhp", W, xt)
+    # inter-chunk: y += c_t · h · exp(L_t)
+    y_inter = torch.einsum("bqn,bhnp,bqh->bqhp", cc_f(cb), h, _decay(L))
+    # state update: h' = h·exp(L_last) + Σ_i b_i ⊗ x̃_i · exp(L_last - L_i)
+    last = L[:, -1:, :]  # (B,1,H)
+    w_state = _decay(last - L)  # (B,Q,H)
+    h = h * _decay(last[:, 0][:, :, None, None]) + torch.einsum(
+        "bin,bih,bihp->bhnp", cc_f(bb), w_state, xt
+    )
+    return h, y_intra + y_inter
 
 
 def ssd_chunked(
@@ -73,25 +114,11 @@ def ssd_chunked(
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
 
     h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device) if h0 is None else h0
+    step = _recorded(_ssd_chunk) if _recording(x, a_log, b, c, dt, h0) else _ssd_chunk
     ys = []
     for j in range(nb):
-        xb, ab, bb, cb, db = xc[:, j], ac[:, j], bc[:, j], cc[:, j], dc[:, j]
-        L = torch.cumsum(ab, dim=1)  # (B,Q,H)
-        # intra-chunk: W[t,i,h] = exp(L_t - L_i) · (c_t·b_i), i<=t
-        cbm = torch.einsum("bqn,bin->bqi", cb.to(torch.float32), bb.to(torch.float32))
-        decay = _decay(L[:, :, None, :] - L[:, None, :, :])  # (B,Q,Q,H)
-        W = cbm[..., None] * decay * mask[None, :, :, None]
-        xt = xb.to(torch.float32) * db[..., None]  # (B,Q,H,P)
-        y_intra = torch.einsum("bqih,bihp->bqhp", W, xt)
-        # inter-chunk: y += c_t · h · exp(L_t)
-        y_inter = torch.einsum("bqn,bhnp,bqh->bqhp", cc_f(cb), h, _decay(L))
-        # state update: h' = h·exp(L_last) + Σ_i b_i ⊗ x̃_i · exp(L_last - L_i)
-        last = L[:, -1:, :]  # (B,1,H)
-        w_state = _decay(last - L)  # (B,Q,H)
-        h = h * _decay(last[:, 0][:, :, None, None]) + torch.einsum(
-            "bin,bih,bihp->bhnp", cc_f(bb), w_state, xt
-        )
-        ys.append(y_intra + y_inter)
+        h, y = step(h, xc[:, j], ac[:, j], bc[:, j], cc[:, j], dc[:, j], mask)
+        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(B, nb * Q, H, P)[:, :S]
     return y.to(x.dtype), h
 
@@ -293,9 +320,10 @@ def slstm_layer(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     c0 = torch.zeros((B, D), dtype=torch.float32, device=x.device)
     state = (c0, c0, torch.full((B, D), -30.0, device=x.device),
              torch.zeros((B, H, P), dtype=x.dtype, device=x.device))
+    cell = _recorded(_slstm_cell) if _recording(x, *p.values()) else _slstm_cell
     ys = []
     for t in range(S):
-        y, state = _slstm_cell(p, zifo[:, t], state, H, P, x.dtype)
+        y, state = cell(p, zifo[:, t], state, H, P, x.dtype)
         ys.append(y)
     return torch.stack(ys, dim=1) @ p["wo_row"]
 

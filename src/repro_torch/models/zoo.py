@@ -7,7 +7,7 @@ Every model exposes the reference's surface:
 
   shapes   — nested dict of param shapes (per-leaf dtype via cfg.dtype)
   init     — draw the parameters on the device from a seeded generator
-  loss     — train-mode forward → scalar loss (dense, moe and vlm)
+  loss     — train-mode forward → scalar loss (every family but encdec)
   prefill  — full-prompt forward → (last logits, caches)
   decode   — one-token step over caches → (logits, caches)
 
@@ -36,16 +36,21 @@ would write past a full K/V cache raises ValueError before the write,
 where the reference drops the row silently.
 
 ``loss`` is the reference's ``_lm_loss`` for the decoder LMs (the vlm's
-over the text rows after the projected patches), on the differentiable
+over the text rows after the projected patches), ``_xlstm_loss`` and
+``_zamba_loss`` for the recurrent families, on the differentiable
 ``attention_train``, never on a kernel; the train step in
-``repro_torch.train`` takes its gradients. The ssm, hybrid and encdec
-losses are not ported yet: their ``loss`` raises NotImplementedError.
+``repro_torch.train`` takes its gradients. Under ``cfg.remat`` each
+decoder, Mamba2 and mLSTM layer of the loss's forward runs under
+``torch.utils.checkpoint`` (an sLSTM layer's steps are checkpointed one
+by one). The encdec loss is not ported yet: its
+``loss`` raises NotImplementedError.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -230,15 +235,11 @@ def _lm_loss(params, batch, cfg: ArchConfig):
                                vocab_size=cfg.vocab_size)
 
 
-def _not_ported_loss(params, batch, cfg: ArchConfig):
+def _whisper_loss_not_ported(params, batch, cfg: ArchConfig):
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} loss (the reference's "
-        f"{_LOSS_TODO[cfg.family]}) is not ported yet; it comes with the next training "
+        f"{cfg.name}: the encdec loss (the reference's _whisper_loss with "
+        "encdec_decoder_forward) is not ported yet; it comes with the next training "
         "slice (ROADMAP Queue 1 item 10)")
-
-
-_LOSS_TODO = {"ssm": "_xlstm_loss", "hybrid": "_zamba_loss",
-              "encdec": "_whisper_loss with encdec_decoder_forward"}
 
 
 def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
@@ -410,15 +411,44 @@ def _xlstm_shapes(cfg: ArchConfig) -> dict:
     }
 
 
-def _xlstm_forward(params, h, cfg: ArchConfig):
+def _residual(layer, lp: dict, h, cfg: ArchConfig):
+    """``h + layer(lp, rmsnorm(h))``: one residual Mamba2, mLSTM or sLSTM
+    layer."""
+    return h + layer(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
+
+
+def _ssm_block(layer, lp: dict, h, cfg: ArchConfig, remat: bool):
+    """:func:`_residual`, with ``remat`` inside ``torch.utils.checkpoint``,
+    so the backward keeps the layer's input alone (the reference's
+    ``jax.checkpoint`` on its scan bodies)."""
+    if remat:
+        return checkpoint(_residual, layer, lp, h, cfg, use_reentrant=False)
+    return _residual(layer, lp, h, cfg)
+
+
+def _xlstm_forward(params, h, cfg: ArchConfig, train: bool = False):
+    """The layer stack: the prefill's (``train`` False) and the loss's,
+    whose mLSTM layers run under a checkpoint with ``cfg.remat``. Its
+    sLSTM layers do not, as in the reference, whose loop calls
+    ``slstm_layer`` itself and leaves its checkpointed ``s_body`` unused:
+    each sLSTM step is checkpointed already, and recomputing the layer
+    would run its sequential loop once more."""
     ng, mpg, _ = _xlstm_layout(cfg)
+    remat = train and cfg.remat
     for g in range(ng):
         for j in range(mpg):
-            lp = layer_params(params["mlayers"], g * mpg + j)
-            h = h + S.mlstm_layer(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
-        sl = layer_params(params["slayers"], g)
-        h = h + S.slstm_layer(sl, L.rmsnorm(h, sl["ln"], cfg.norm_eps), cfg)
+            h = _ssm_block(S.mlstm_layer, layer_params(params["mlayers"], g * mpg + j), h,
+                           cfg, remat)
+        h = _residual(S.slstm_layer, layer_params(params["slayers"], g), h, cfg)
     return h
+
+
+def _xlstm_loss(params, batch, cfg: ArchConfig):
+    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    h = _xlstm_forward(params, h, cfg, train=True)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return L.xent_loss_chunked(h, params["out_embed"], batch["labels"],
+                               vocab_size=cfg.vocab_size)
 
 
 def _xlstm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
@@ -500,25 +530,38 @@ def _zamba_shapes(cfg: ArchConfig) -> dict:
     }
 
 
-def _mamba_block(params, h, i: int, cfg: ArchConfig):
-    lp = layer_params(params["layers"], i)
-    return h + S.mamba2_layer(lp, L.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
-
-
-def _zamba_forward(params, h, cfg: ArchConfig, positions):
+def _zamba_forward(params, h, cfg: ArchConfig, positions, train: bool = False):
+    """The layer stack: the prefill's (``train`` False: the shared block on
+    the flash-attention kernel) and the loss's (on ``attention_train``; as
+    in the reference, only the Mamba2 layers are checkpointed)."""
     ng, k, rem = _zamba_layout(cfg)
     sh = params["shared"]
+
+    def mamba(h, i):
+        return _ssm_block(S.mamba2_layer, layer_params(params["layers"], i), h, cfg,
+                          train and cfg.remat)
+
     for g in range(ng):
         for j in range(k):
-            h = _mamba_block(params, h, g * k + j, cfg)
+            h = mamba(h, g * k + j)
         h = h + L.attn_block(
             sh["attn"], L.rmsnorm(h, sh["ln1"], cfg.norm_eps), cfg,
-            positions=positions, causal=True, window=cfg.sliding_window,
+            positions=positions, causal=True, window=cfg.sliding_window, train=train,
         )
         h = h + L.mlp_block(sh["mlp"], L.rmsnorm(h, sh["ln2"], cfg.norm_eps), cfg)
     for i in range(ng * k, ng * k + rem):
-        h = _mamba_block(params, h, i, cfg)
+        h = mamba(h, i)
     return h
+
+
+def _zamba_loss(params, batch, cfg: ArchConfig):
+    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    B, Ss, _ = h.shape
+    positions = torch.arange(Ss, device=h.device)[None, :].expand(B, Ss)
+    h = _zamba_forward(params, h, cfg, positions, train=True)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return L.xent_loss_chunked(h, params["out_embed"], batch["labels"],
+                               vocab_size=cfg.vocab_size)
 
 
 def _zamba_prefill(params, batch, cfg: ArchConfig, cache_len=None):
@@ -603,9 +646,9 @@ _FAMILIES = {
     "dense": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
     "moe": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
     "vlm": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
-    "encdec": (_whisper_shapes, _not_ported_loss, _whisper_prefill, _whisper_decode),
-    "ssm": (_xlstm_shapes, _not_ported_loss, _xlstm_prefill, _xlstm_decode),
-    "hybrid": (_zamba_shapes, _not_ported_loss, _zamba_prefill, _zamba_decode),
+    "encdec": (_whisper_shapes, _whisper_loss_not_ported, _whisper_prefill, _whisper_decode),
+    "ssm": (_xlstm_shapes, _xlstm_loss, _xlstm_prefill, _xlstm_decode),
+    "hybrid": (_zamba_shapes, _zamba_loss, _zamba_prefill, _zamba_decode),
 }
 
 
