@@ -304,13 +304,37 @@ In order it
    plain versions and timed, the counted run captured (24 launches of each
    attention kernel an admission and a tick), its tokens equal to the
    eager run's and held against a plain-attention run up to a near-tie;
-17. prints the run's total time, the kernel table as one JSON line
+17. the recurrent training phase (``recurrent_training_phase``): xlstm-350m
+   whole and zamba2-7b at full width cut to 13 layers trained, resumed,
+   held in bf16 against float32, their recurrent layers' gradients against
+   their decode steps unrolled, and served from their checkpoints;
+18. the enc-dec training phase (``encdec_training_phase``): whisper-small
+   at its published width and depth (12 encoder and 12 decoder layers of
+   768, 1,500 frames, bf16, float32 AdamW moments, remat) trained through
+   ``make_train_step`` and ``CheckpointManager``: 4 steps of 16 clips, each
+   step's frames drawn from a generator seeded by the step, and 448 loader
+   tokens, checkpoints at steps 1 and 3; no kernel launched by a training
+   step; the loss down by at least 1 nat; the first step's check; a run
+   resumed from step 1 repeating steps 2-3; one step in bf16 against
+   float32 on the seed's weights (B = 2, 1,500 frames), each leaf and each
+   decoder layer's slice of the cross attention's value projection within
+   its limit, the cross key bias's zero gradient held by its size, and
+   the check failing with the encoder detached from the decoder and with
+   the cross attention cut in each of the 12 layers (planted faults);
+   the step, tokens and frames a second, model FLOPs by part against 989
+   TFLOP/s, the idle share of a profiled step, the peak memory and the
+   checkpoint; then step 3's checkpoint served: 16 clips with 4-token
+   loader prompts, 64 greedy steps through ``prefill`` and a captured
+   ``decode`` bitwise the eager one, its attention sites held against the
+   plain versions and timed (36 ``flash_attention`` a prefill, 24
+   ``decode_attention`` a step);
+19. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
    included), the LM serving run, the analysis gate's scenarios, the moe
    serving run, the recurrent runs, the families' runs and the trained
-   model's serving run; ``sites``:
+   models' serving runs; ``sites``:
    every site held and timed, the main path's and the extra ones) and,
    last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -448,6 +472,29 @@ REC_GRAD_LAYERS = {
 REC_GRAD_CHECK_BATCH, REC_GRAD_CHECK_SEQ = 2, 256
 REC_GRAD_RECURRENCE_TOL = 1e-3
 GATE_TIMEOUT_S = 600
+# whisper-small trained whole (12 encoder and 12 decoder layers of 768,
+# 1,500 frames) through make_train_step and CheckpointManager: B x S loader
+# tokens (448, whisper's published decoder context) over each step's
+# frames, drawn from a generator seeded by the step (WHISPER_FRAME_SEED +
+# step), so the resumed run sees the first run's; lr 1e-3 (PERF.md section 6)
+WHISPER_TRAIN = (16, 448, 1e-3)
+WHISPER_FRAME_SEED = 1000
+WHISPER_TRAIN_CHECK_BATCH = 2  # the bf16 step against float32, at 1,500 frames and S = 448
+WHISPER_SERVE_PROMPT = 4  # the trained model served: 16 clips, 4-token prompts, 64 steps
+# The bf16 step's gradient against the float32 step's, on the seed's
+# weights (the state of the CPU witness), each leaf within
+# ENC_GRAD_REL_TOL of its float32 norm, and each decoder layer's slice of
+# the ENC_SLICE_LEAVES within the same limit: a cross attention cut in one
+# of the 12 layers leaves the whole leaf within it where that layer's
+# share of the norm is small, and takes its own slice to 100%. The cross
+# key bias's gradient is zero in exact arithmetic (a bias added to every
+# key shifts a query's scores alike; the cross keys take no RoPE), so it
+# has no direction to hold: its bf16 norm is held under ENC_ZERO_GRAD_TOL
+# of the value projection's float32 norm.
+ENC_GRAD_REL_TOL = 0.08
+ENC_SLICE_LEAVES = ("layers/xattn/wv_col", "layers/xattn/bv_col")
+ENC_ZERO_GRAD, ENC_ZERO_GRAD_BESIDE = "layers/xattn/bk_col", "layers/xattn/wv_col"
+ENC_ZERO_GRAD_TOL = 1e-4
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
 KERNELS = {
@@ -3615,7 +3662,7 @@ def whisper_phase(dev, smi: str, rows: dict) -> dict[str, int]:
                for S in WHISPER_PROMPTS]
     hold_sites(record_family(model, params, batches, WHISPER_STEPS, dev, whisper_site(F)),
                   rows)
-    L, E = cfg.n_layers, cfg.encoder_layers
+    L = cfg.n_layers
     kv_row = L * 2 * cfg.n_kv_heads * cfg.hd * 2
     counts = dict.fromkeys(KERNELS, 0)
     for batch, S in batches:
@@ -3623,11 +3670,7 @@ def whisper_phase(dev, smi: str, rows: dict) -> dict[str, int]:
                       + WHISPER_BATCH * (F + S + WHISPER_STEPS // 2 + 1) * kv_row)
         got = serve_family(model, params, batch, S, WHISPER_STEPS, dev, smi, step_bytes,
                            f"{WHISPER_BATCH} clips x {F} frames, {S}-token prompt")
-        check(got["flash_attention"] == E + 2 * L
-              and got["decode_attention"] == 2 * L * (2 * WHISPER_STEPS + 1)
-              and all(got[n] == 0 for n in KERNELS if n not in ATTENTION),
-              f"{WHISPER_ARCH} launches {got}: want {E + 2 * L} flash_attention a prefill and "
-              f"{2 * L} decode_attention a step (the capture's warm-up step too)")
+        check_whisper_launches(got, cfg, WHISPER_STEPS, WHISPER_ARCH)
         for name in KERNELS:
             counts[name] += got[name]
     print(f"{WHISPER_ARCH} [{smi}]: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
@@ -4206,20 +4249,22 @@ def rec_precision_check(cfg, params: dict, dev, smi: str) -> dict:
     return stats
 
 
-def drive_zamba(cfg, dev, start: int, ckpt: str, ckpt_every: int, on_step=None) -> dict:
-    """zamba2 cut in depth, trained through ``make_train_step`` and
-    ``CheckpointManager`` as ``train_loop`` trains a published config: the
-    same loader batches, ``accum_steps`` from ``choose_accum_steps``, a
-    checkpoint every ``ckpt_every`` steps, from ``start``'s checkpoint (the
-    step before it) or from the seed's draw. Returns what ``train_loop``
-    returns."""
+def drive_train(cfg, dev, shape: tuple, start: int, ckpt: str, ckpt_every: int, on_step=None,
+                extra=None) -> dict:
+    """``cfg`` trained through ``make_train_step`` and ``CheckpointManager``
+    as ``train_loop`` trains a published config: ``shape`` is (B, S, lr),
+    the same loader batches, with ``extra(step)``'s tensors beside the
+    tokens where given (whisper's frames), ``accum_steps`` from
+    ``choose_accum_steps``, a checkpoint every ``ckpt_every`` steps, from
+    ``start``'s checkpoint (the step before it) or from the seed's draw.
+    Returns what ``train_loop`` returns."""
     from repro_torch.checkpoint import CheckpointManager, load_checkpoint, restore_onto_device
     from repro_torch.data.loader import TokenLoader
     from repro_torch.launch.train import choose_accum_steps
     from repro_torch.models import build_model
     from repro_torch.train.step import init_opt_state, make_train_step
 
-    B, S, lr, _ = REC_TRAIN[cfg.name]
+    B, S, lr = shape
     model = build_model(cfg)
     if start:
         s, tree, _ = load_checkpoint(ckpt)
@@ -4241,6 +4286,8 @@ def drive_zamba(cfg, dev, start: int, ckpt: str, ckpt_every: int, on_step=None) 
         for step in range(start, TRAIN_STEPS):
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(dev) for k, v in loader.batch(step).items()}
+            if extra is not None:
+                batch.update(extra(step))
             load_s.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
             params, opt, metrics = step_fn(params, opt, batch)
@@ -4262,7 +4309,7 @@ def rec_train_runs(cfg, dev, ckpt: str, hook) -> tuple[dict, dict]:
     """The first run (TRAIN_STEPS steps from the seed, checkpoints at steps
     1 and 3) and, with step 3's checkpoint moved aside to ``ckpt``'s
     sibling ``served``, the run resumed from step 1's: xlstm through
-    ``train_loop``, zamba2 through :func:`drive_zamba`."""
+    ``train_loop``, zamba2 through :func:`drive_train`."""
     from repro_torch.launch.train import train_loop
 
     arch = cfg.name
@@ -4274,7 +4321,8 @@ def rec_train_runs(cfg, dev, ckpt: str, hook) -> tuple[dict, dict]:
                   print_fn=lambda m: print(f"train {arch}: {m}", flush=True))
         first = train_loop(ckpt_every=TRAIN_CKPT_EVERY, on_step=hook, **kw)
     else:
-        first = drive_zamba(cfg, dev, 0, ckpt, TRAIN_CKPT_EVERY, on_step=hook)
+        first = drive_train(cfg, dev, REC_TRAIN[arch][:3], 0, ckpt, TRAIN_CKPT_EVERY,
+                            on_step=hook)
     last = TRAIN_STEPS - 1
     check(sorted(os.listdir(ckpt)) == [f"step_{TRAIN_CKPT_EVERY - 1:08d}", f"step_{last:08d}"],
           f"{arch}: checkpoints kept: {sorted(os.listdir(ckpt))}")
@@ -4286,7 +4334,7 @@ def rec_train_runs(cfg, dev, ckpt: str, hook) -> tuple[dict, dict]:
     if arch == XLSTM_ARCH:
         second = train_loop(ckpt_every=0, resume=True, **kw)
     else:
-        second = drive_zamba(cfg, dev, TRAIN_CKPT_EVERY, ckpt, 0)
+        second = drive_train(cfg, dev, REC_TRAIN[arch][:3], TRAIN_CKPT_EVERY, ckpt, 0)
     return first, second
 
 
@@ -4455,6 +4503,363 @@ def recurrent_training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
         got = train_recurrent(arch, dev, smi, rows)
         for name in KERNELS:
             counts[name] += got[name]
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Training the enc-dec: whisper-small whole, resumed, served from its checkpoint
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def encdec_fault(kind: str, layer: int | None = None):
+    """A planted fault in the enc-dec loss. ``"encoder detached"``: the
+    encoder's output cut from the decoder. ``"cross attention"``: the
+    cross attention's output cut in decoder layer ``layer`` (in every layer
+    when None), found by its parameters, marked when ``layer_params``
+    slices them, so the mark holds when a checkpointed layer is recomputed.
+    ``"cross query bias"``: the loss's cross query without ``bq_col`` (the
+    prefill's query). ``"cross keys unmasked"``: the encoder rows' K/V
+    zero-padded to the key block's multiple before the cross attention,
+    which then attends the padding as keys (it shows only where the
+    encoder's rows do not fill their last block)."""
+    from repro_torch.models import layers, transformer, zoo
+
+    saved = []
+
+    def patch(mod, name: str, fn) -> None:
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    if kind == "encoder detached":
+        encode = zoo._whisper_encode
+        patch(zoo, "_whisper_encode", lambda *a, **k: encode(*a, **k).detach())
+    elif kind == "cross attention":
+        cross, real_slice, attend = (transformer._cross_attention, transformer.layer_params,
+                                     layers.attention_train)
+
+        def layer_params(stacked: dict, i: int) -> dict:
+            lp = real_slice(stacked, i)
+            # the slicing recurses through this name: mark only the layer's own dict
+            if "xattn" in lp and layer in (None, i):
+                return {**lp, "xattn": _CutAttention(lp["xattn"])}
+            return lp
+
+        def cut_cross(p: dict, *a, **k):
+            if not isinstance(p, _CutAttention):
+                return cross(p, *a, **k)
+            layers.attention_train = lambda *aa, **kk: attend(*aa, **kk).detach()
+            try:
+                return cross(p, *a, **k)
+            finally:
+                layers.attention_train = attend
+
+        patch(transformer, "layer_params", layer_params)
+        patch(transformer, "_cross_attention", cut_cross)
+    elif kind == "cross query bias":
+        patch(transformer, "_train_cross_query",
+              lambda p, hn, cfg: zoo._cross_query({"xattn": p}, hn, cfg))
+    elif kind == "cross keys unmasked":
+        proj = layers.attn_proj_kv
+
+        def padded(p: dict, x, cfg):
+            k, v = proj(p, x, cfg)
+            pad = (-k.shape[1]) % min(1024, k.shape[1])  # attention_train's k_chunk
+            return tuple(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+
+        patch(layers, "attn_proj_kv", padded)
+    else:
+        raise ValueError(kind)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def whisper_frames(cfg, step: int, batch: int, dev) -> dict:
+    """Step ``step``'s (batch, frames, d_model) float32 frames, drawn from a
+    generator seeded by the step."""
+    gen = torch.Generator(device=dev).manual_seed(WHISPER_FRAME_SEED + step)
+    return {"frames": torch.randn((batch, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                                  device=dev, dtype=torch.float32)}
+
+
+def whisper_step_flops(cfg, shapes: dict, batch: int, seq: int) -> dict:
+    """Model FLOPs of one whisper training step by part, 6 · parameters ·
+    rows for the products (forward and backward): the encoder's layers
+    over the frames, each decoder layer's cross K/V over the frames, the
+    rest of the decoder and the head over the tokens (the embedding is a
+    lookup, not counted); and the attention products, 12 · B · Sq · Skv ·
+    H · D a layer (non-causal: the encoder, the cross attention), half of
+    it for the causal self-attention. Recomputation under remat is not
+    counted. ``total`` sums the parts."""
+    from repro_torch.models.zoo import _leaves
+
+    F, HD = cfg.frontend_tokens, cfg.n_heads * cfg.hd
+    def size(tree) -> int:
+        return sum(int(np.prod(s)) for _, s in _leaves(tree))
+
+    cross_kv = sum(int(np.prod(s)) for k, s in _leaves(shapes["layers"]["xattn"])
+                   if k in ("wk_col", "wv_col", "bk_col", "bv_col"))
+    parts = {
+        "encoder": 6.0 * size(shapes["encoder_layers"]) * batch * F,
+        "cross_kv": 6.0 * cross_kv * batch * F,
+        "decoder": 6.0 * (size(shapes["layers"]) - cross_kv) * batch * seq,
+        "head": 6.0 * int(np.prod(shapes["out_embed"])) * batch * seq,
+        "attention_encoder": 12.0 * batch * F * F * HD * cfg.encoder_layers,
+        "attention_cross": 12.0 * batch * seq * F * HD * cfg.n_layers,
+        "attention_self": 6.0 * batch * seq * seq * HD * cfg.n_layers,
+    }
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def slice_errors(got: dict, want: dict, leaves) -> dict[str, float]:
+    """Each layer's slice of the stacked ``leaves``: ||got[l] - want[l]|| /
+    ||want[l]||, keyed ``leaf[l]``."""
+    return {f"{k}[{i}]": float(torch.linalg.vector_norm(got[k][i].float() - want[k][i])
+                               / torch.linalg.vector_norm(want[k][i]))
+            for k in leaves for i in range(want[k].shape[0])}
+
+
+def encdec_grad_errors(g16: dict, g32: dict) -> tuple[dict, dict, float]:
+    """(the relative error of each leaf but ENC_ZERO_GRAD, of each layer
+    slice of ENC_SLICE_LEAVES, and the bf16 norm of ENC_ZERO_GRAD over the
+    float32 norm of ENC_ZERO_GRAD_BESIDE)."""
+    errs = rel_errors(g16, {k: w for k, w in g32.items() if k != ENC_ZERO_GRAD})
+    size = float(torch.linalg.vector_norm(g16[ENC_ZERO_GRAD].float())
+                 / torch.linalg.vector_norm(g32[ENC_ZERO_GRAD_BESIDE]))
+    return errs, slice_errors(g16, g32, ENC_SLICE_LEAVES), size
+
+
+def encdec_failing(errs: dict, slices: dict, size: float) -> dict[str, float]:
+    """What passes its limit, each with error / limit: leaves and layer
+    slices (ENC_GRAD_REL_TOL), the zero gradient of ENC_ZERO_GRAD
+    (ENC_ZERO_GRAD_TOL)."""
+    failing = past_limits({**errs, **slices}, ENC_GRAD_REL_TOL, {})
+    if not size <= ENC_ZERO_GRAD_TOL:
+        failing[ENC_ZERO_GRAD] = size / ENC_ZERO_GRAD_TOL
+    return failing
+
+
+def encdec_precision_check(cfg, params: dict, dev, smi: str) -> dict:
+    """One step's loss and gradients in bf16 on the seed's ``params``
+    against the same step with them cast to float32, at
+    WHISPER_TRAIN_CHECK_BATCH clips of the full 1,500 frames and S loader
+    tokens: the loss within TRAIN_LOSS_REL_TOL, each leaf and each layer
+    slice of ENC_SLICE_LEAVES within ENC_GRAD_REL_TOL of its float32 norm,
+    the cross key bias's zero gradient within ENC_ZERO_GRAD_TOL
+    (:func:`encdec_grad_errors`). Each planted fault must fail it: the
+    encoder detached from the decoder, and the cross attention cut in each
+    decoder layer in turn; every fault's errors are printed."""
+    from repro_torch.data.loader import TokenLoader
+
+    B, S = WHISPER_TRAIN_CHECK_BATCH, WHISPER_TRAIN[1]
+    np_batch = TokenLoader(global_batch=B, seq_len=S, vocab=cfg.vocab_size,
+                           seed=TRAIN_SEED).batch(100)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+    batch.update(whisper_frames(cfg, 100, B, dev))
+    l32, g32 = step_grads(dataclasses.replace(cfg, dtype="float32"), params, batch)
+    l16, g16 = step_grads(cfg, params, batch)
+    loss_err = abs(l16 - l32) / abs(l32)
+    errs, slices, size = encdec_grad_errors(g16, g32)
+    print(f"train {WHISPER_ARCH} [{smi}]: bf16 step vs float32 step on the seed's weights at "
+          f"B = {B}, {cfg.frontend_tokens} frames, S = {S}: loss {l16!r} vs {l32!r} (rel err "
+          f"{loss_err!r}); gradient rel norm err by leaf {json.dumps(errs)}; by layer "
+          f"{json.dumps(slices)}; {ENC_ZERO_GRAD}, zero in exact arithmetic: bf16 norm over "
+          f"the float32 norm of {ENC_ZERO_GRAD_BESIDE} {size!r}", flush=True)
+    del g16
+    check(loss_err <= TRAIN_LOSS_REL_TOL, f"{WHISPER_ARCH}: bf16 loss off by {loss_err!r}")
+    failing = encdec_failing(errs, slices, size)
+    check(not failing, f"{WHISPER_ARCH}: bf16 gradients off the float32 ones past their "
+          f"limits (error / limit): {failing}")
+    planted = {}
+    faults = [("encoder detached", None, "encoder detached")] + [
+        ("cross attention", i, f"cross attention cut in layer {i}") for i in range(cfg.n_layers)]
+    for kind, layer, what in faults:
+        with encdec_fault(kind, layer):
+            f_loss, f_grads = step_grads(cfg, params, batch)
+        failing = encdec_failing(*encdec_grad_errors(f_grads, g32))
+        del f_grads
+        check(abs(f_loss - l16) <= 1e-6 * abs(l16),
+              f"{WHISPER_ARCH}: the planted fault ({what}) moved the loss: {f_loss!r} vs {l16!r}")
+        check(failing, f"{WHISPER_ARCH}: the planted fault ({what}) passed the gradient check")
+        planted[what] = failing
+    del g32
+    weakest = min(planted, key=lambda w: max(planted[w].values()))
+    print(f"planted fault training {WHISPER_ARCH}: each of {len(planted)} faults fails; what "
+          "passes its limit (error / limit) by fault " + json.dumps(planted), flush=True)
+    return {"loss_rel_err": loss_err, "grad_rel_err_max": max(errs.values()),
+            "grad_rel_err_leaf": max(errs, key=errs.get),
+            "grad_rel_err_slice_max": max(slices.values()), "zero_grad_size": size,
+            "planted_weakest": weakest, "planted_weakest_ratio": max(planted[weakest].values())}
+
+
+def check_whisper_launches(got: dict, cfg, steps: int, label: str) -> None:
+    """E + 2L ``flash_attention`` a prefill (encoder, self, cross) and 2L
+    ``decode_attention`` a step, the capture's warm-up step too."""
+    L, E = cfg.n_layers, cfg.encoder_layers
+    check(got["flash_attention"] == E + 2 * L
+          and got["decode_attention"] == 2 * L * (2 * steps + 1)
+          and all(got[n] == 0 for n in KERNELS if n not in ATTENTION),
+          f"{label} launches {got}: want {E + 2 * L} flash_attention a prefill and "
+          f"{2 * L} decode_attention a step (the capture's warm-up step too)")
+
+
+def serve_trained_whisper(model, params: dict, dev, smi: str, rows: dict) -> dict[str, int]:
+    """The trained whisper served: 16 clips of seeded frames, each with the
+    first WHISPER_SERVE_PROMPT tokens of a loader row, WHISPER_STEPS greedy
+    steps through ``prefill`` and a captured ``decode`` (bitwise eager,
+    :func:`serve_family`); its attention sites, recorded in an eager
+    prefill and step, held against their plain versions into ``rows``.
+    Returns the counted run's launches."""
+    from repro_torch.data.loader import TokenLoader
+
+    cfg = model.cfg
+    B, F, S = WHISPER_BATCH, cfg.frontend_tokens, WHISPER_SERVE_PROMPT
+    tokens = TokenLoader(global_batch=B, seq_len=S, vocab=cfg.vocab_size,
+                         seed=TRAIN_SEED + 1).batch(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             **whisper_frames(cfg, TRAIN_STEPS + 1, B, dev)}
+    site = whisper_site(F)
+    hold_sites(record_family(model, params, [(batch, S)], WHISPER_STEPS, dev,
+                             lambda *a: f"trained, {site(*a)}"), rows)
+    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * 2
+    step_bytes = step_weight_bytes(params) + B * (F + S + WHISPER_STEPS // 2 + 1) * kv_row
+    label = f"trained, {B} clips x {F} frames, {S}-token prompt"
+    counts = serve_family(model, params, batch, S, WHISPER_STEPS, dev, smi, step_bytes, label)
+    check_whisper_launches(counts, cfg, WHISPER_STEPS, f"{WHISPER_ARCH} {label}")
+    return counts
+
+
+def encdec_training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+    """whisper-small held in bf16 against float32 on the seed's weights,
+    with its planted faults; trained whole through :func:`drive_train`
+    (WHISPER_TRAIN, frames by step), counted: the training steps launch no
+    kernel; resumed from its first checkpoint; one step profiled; then
+    served from its last checkpoint. Returns the serving run's launches."""
+    from repro_torch.checkpoint import load_checkpoint, restore_onto_device
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.models import build_model, zoo
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(WHISPER_ARCH)
+    check((cfg.family, cfg.dtype, cfg.encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.frontend_tokens, cfg.qkv_bias,
+           cfg.mlp_act, cfg.optimizer, cfg.optimizer_dtype, cfg.remat)
+          == ("encdec", "bfloat16", 12, 12, 768, 12, 12, 64, 3072, 51865, 1500, True, "gelu",
+              "adamw", "float32", True), cfg)
+    B, S, lr = WHISPER_TRAIN
+    model = build_model(cfg)
+    n_params = sum(int(np.prod(shape)) for _, shape in zoo._leaves(model.shapes))
+    flops = whisper_step_flops(cfg, model.shapes, B, S)
+    print(f"train {WHISPER_ARCH}: {n_params} parameters, {cfg.encoder_layers} + "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.frontend_tokens} frames, "
+          f"{cfg.dtype}, optimizer {cfg.optimizer} ({cfg.optimizer_dtype} moments), remat "
+          f"{cfg.remat}; B = {B}, S = {S}, lr {lr}; model FLOPs a step {json.dumps(flops)}",
+          flush=True)
+    lap_t = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"encdec training phase: {what} in {now - lap_t[0]:.1f} s", flush=True)
+        lap_t[0] = now
+
+    seed = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED), device=dev)
+    precision = encdec_precision_check(cfg, seed, dev, smi)
+    lap("the bf16 check and its planted faults")
+    hook = FirstStep(dict(zoo._leaves(seed)), WHISPER_ARCH, lr)
+    del seed
+    model.leaves.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_encdec_")
+    ckpt, served = os.path.join(root, "ckpt"), os.path.join(root, "served")
+    last = TRAIN_STEPS - 1
+
+    def frames(step: int) -> dict:
+        return whisper_frames(cfg, step, B, dev)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        first = drive_train(cfg, dev, WHISPER_TRAIN, 0, ckpt, TRAIN_CKPT_EVERY, on_step=hook,
+                            extra=frames)
+        check(sorted(os.listdir(ckpt)) == [f"step_{TRAIN_CKPT_EVERY - 1:08d}", f"step_{last:08d}"],
+              f"{WHISPER_ARCH}: checkpoints kept: {sorted(os.listdir(ckpt))}")
+        os.makedirs(served)
+        os.rename(os.path.join(ckpt, f"step_{last:08d}"), os.path.join(served, f"step_{last:08d}"))
+        del first["params"], first["opt_state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        second = drive_train(cfg, dev, WHISPER_TRAIN, TRAIN_CKPT_EVERY, ckpt, 0, extra=frames)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        trained = read_counts()
+        check(not any(trained.values()), f"{WHISPER_ARCH}: training steps launched {trained}")
+        lap("the first and the resumed run")
+        losses, again = first["losses"], second["losses"]
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"{WHISPER_ARCH}: {losses}")
+        check(losses[0] - losses[-1] >= TRAIN_MIN_DROP,
+              f"{WHISPER_ARCH}: the loss fell {losses[0] - losses[-1]!r} nats over "
+              f"{TRAIN_STEPS} steps")
+        check(hook.initial is None, f"{WHISPER_ARCH}: the first step was not checked")
+        saved = first["checkpoint"]
+        check(saved["step"] == last and saved["bytes"] > 0, saved)
+        check(second["accum_steps"] == first["accum_steps"],
+              (second["accum_steps"], first["accum_steps"]))
+        diff = max(abs(a - b) for a, b in zip(again, losses[TRAIN_CKPT_EVERY:]))
+        bitwise = again == losses[TRAIN_CKPT_EVERY:]
+        print(f"train {WHISPER_ARCH}: losses {losses}; resumed from step "
+              f"{TRAIN_CKPT_EVERY - 1}, steps {TRAIN_CKPT_EVERY}-{last} losses {again}: "
+              f"{'bitwise equal' if bitwise else 'largest diff'} {diff!r}; launches of the "
+              f"training steps {trained}", flush=True)
+        check(len(again) == TRAIN_STEPS - TRAIN_CKPT_EVERY and diff <= TRAIN_RESUME_TOL,
+              f"{WHISPER_ARCH}: the resumed losses differ by {diff!r}")
+        params, opt, accum = second["params"], second["opt_state"], second["accum_steps"]
+        step_fn = make_train_step(model, lr=lr, accum_steps=accum)
+        np_batch = TokenLoader(global_batch=B, seq_len=S, vocab=cfg.vocab_size,
+                               seed=TRAIN_SEED).batch(TRAIN_STEPS)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+        batch.update(frames(TRAIN_STEPS))
+        step_s = first["step_s"] + second["step_s"]
+        median_s = float(np.median(step_s[1:]))
+        idle = profile_card(lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1,
+                            1e3 * median_s, f"{WHISPER_ARCH} training step")
+        del params, opt, second, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats = {
+            "batch": B, "seq": S, "frames": cfg.frontend_tokens, "params": n_params,
+            "accum_steps": accum, "microbatch": B // accum, "losses": losses,
+            "resumed_losses": again, "resume_bitwise": bitwise, "grad_norm": hook.grad_norm,
+            "unmoved_after_step_0": hook.unmoved, "step_s_first": step_s[0],
+            "step_s_median": median_s, "step_s_p90": float(np.percentile(step_s[1:], 90)),
+            "tokens_per_s": B * S / median_s,
+            "frames_per_s": B * cfg.frontend_tokens / median_s,
+            "model_flops_per_step": flops["total"],
+            "bound_step_s": flops["total"] / BF16_FLOPS_PER_S,
+            "mfu_bf16": flops["total"] / BF16_FLOPS_PER_S / median_s, "idle_share_step": idle,
+            "peak_gib": peak / 2**30, "loader_s_median": float(np.median(first["load_s"])),
+            "checkpoint_snapshot_s": saved["snapshot_s"], "checkpoint_write_s": saved["write_s"],
+            "checkpoint_bytes": saved["bytes"], "runs_wall_s": wall, **precision,
+        }
+        print(f"training {WHISPER_ARCH} [{smi}]:", json.dumps(stats), flush=True)
+        lap("the profiled step")
+        step, tree, _ = load_checkpoint(served)
+        check(step == last, step)
+        params = restore_onto_device(tree["params"], dev)
+        del tree
+        counts = serve_trained_whisper(model, params, dev, smi, rows)
+        lap("the trained model served")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4629,6 +5034,10 @@ def main() -> int:
     for name in KERNELS:
         counts[name] += trained[name]
     mark("recurrent training phase")
+    trained = encdec_training_phase(dev, smi, rows)
+    for name in KERNELS:
+        counts[name] += trained[name]
+    mark("encdec training phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():

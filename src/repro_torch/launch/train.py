@@ -36,7 +36,7 @@ from repro_torch.distributed import (
     ef_init,
 )
 from repro_torch.models import build_model
-from repro_torch.models.zoo import _vp
+from repro_torch.models.zoo import _enc_frames, _vp
 from repro_torch.train.optimizer import adafactor_update, adamw_update
 from repro_torch.train.step import init_opt_state, loss_and_grads, make_train_step
 
@@ -47,17 +47,33 @@ def sequence_bytes(cfg, seq: int) -> int:
     """A rough peak of one sequence's training activations: the loss's
     float32 (512, Vp) chunk with its gradient and temporaries, a layer's
     input kept a layer (remat) or its activations (no remat), and the
-    working set of the layer the backward is in (:func:`_layer_bytes`)."""
+    working set of the layer the backward is in (:func:`_layer_bytes`).
+    The enc-dec also keeps each encoder layer's input over its
+    ``frontend_tokens`` rows."""
+    per_row = 2 * (1 if cfg.remat else 12)
     xent = 512 * _vp(cfg) * 18
-    kept = cfg.n_layers * seq * cfg.d_model * 2 * (1 if cfg.remat else 12)
+    kept = cfg.n_layers * seq * cfg.d_model * per_row
+    if cfg.family == "encdec":
+        kept += cfg.encoder_layers * _enc_frames(cfg) * cfg.d_model * per_row
     return int(xent + kept + _layer_bytes(cfg, seq))
+
+
+def _block_bytes(cfg, rows: int, kv_rows: int) -> int:
+    """An attention and MLP layer over ``rows`` (keys over ``kv_rows``):
+    the MLP's and projections' activations and a block of float32
+    attention scores."""
+    attn = cfg.n_heads * min(rows, 512) * min(kv_rows, 1024) * 4 * 8
+    return rows * (cfg.d_ff * 16 + cfg.d_model * 24) + attn
 
 
 def _layer_bytes(cfg, seq: int) -> int:
     """One layer's activations, recomputed in the backward, by family.
 
-    Attention and MLP (the decoders, zamba2's shared block): the MLP's and
-    projections' activations and a block of float32 attention scores.
+    Attention and MLP (the decoders, zamba2's shared block):
+    :func:`_block_bytes`. The enc-dec: the larger of a decoder layer (its
+    block, the cross-attention's score block over the encoder rows, and
+    the cross K/V projected from them) and an encoder layer, whose score
+    blocks are those of a ``frontend_tokens``-row query.
     xlstm: an mLSTM layer's projections and float32 SSD outputs, or an
     sLSTM layer's per-step checkpoints, which keep each step's carried
     float32 (c, n, m) and bf16 y_prev beside the (S, 4D) gate inputs.
@@ -66,8 +82,12 @@ def _layer_bytes(cfg, seq: int) -> int:
     recomputed; and, since its shared block runs outside any checkpoint
     (as in the reference), every application's activations kept."""
     D = cfg.d_model
-    attn = cfg.n_heads * min(seq, 512) * min(seq, 1024) * 4 * 8
-    block = seq * (cfg.d_ff * 16 + D * 24) + attn
+    block = _block_bytes(cfg, seq, seq)
+    if cfg.family == "encdec":
+        F = _enc_frames(cfg)
+        cross = (cfg.n_heads * min(seq, 512) * min(F, 1024) * 4 * 8
+                 + F * cfg.n_kv_heads * cfg.hd * 2 * 2)
+        return max(block + cross, _block_bytes(cfg, F, F))
     if cfg.family == "ssm":
         mlstm = seq * D * 40
         slstm = seq * D * (3 * 4 + 2 + 4 * 2 + 2)

@@ -104,21 +104,59 @@ def _mask(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
     return ok
 
 
+class _BlockMax(torch.autograd.Function):
+    """Each query's largest score (B,KH,G,cq) over the block ``s``, with the
+    gradient the reference's ``s.max`` passes back: to the score at the
+    argmax key, that is to ``qf`` (B,cq,KH,G,D) through the key and to
+    ``kf`` (B,ck,KH,D) at that key through the query, their float32 copies
+    the scores were taken on. The argmax is found once, in the backward,
+    and no gradient is made over the score block. A query whose every key
+    is masked has a constant max and no gradient."""
+
+    @staticmethod
+    def forward(ctx, s, qf, kf):
+        ctx.save_for_backward(s, qf, kf)
+        return s.amax(dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, qf, kf = ctx.saved_tensors
+        B, cq, KH, G, D = qf.shape
+        ck = kf.shape[1]
+        at = s.argmax(dim=-1, keepdim=True)
+        g = torch.where(s.gather(-1, at) == NEG_INF, 0.0, g[..., None])  # (B,KH,G,cq,1)
+        kt = kf.permute(0, 2, 1, 3)  # (B,KH,ck,D)
+        idx = at.reshape(B, KH, G * cq, 1).expand(-1, -1, -1, D)
+        dq = g * kt.gather(2, idx).reshape(B, KH, G, cq, D)
+        gq = (g * qf.permute(0, 2, 3, 1, 4)).reshape(-1, D)
+        # index_put_ sums repeated keys in a fixed order (scatter_add_ on the
+        # card does not), so a resumed run repeats a step's bits
+        rows = (at.reshape(B * KH, G * cq)
+                + ck * torch.arange(B * KH, device=s.device)[:, None]).reshape(-1)
+        dk = kt.new_zeros(B * KH * ck, D).index_put_((rows,), gq, accumulate=True)
+        return None, dq.permute(0, 3, 1, 2, 4), dk.reshape(B, KH, ck, D).permute(0, 2, 1, 3)
+
+
 def _kv_step(m, l, acc, qb, kb, vb, q_pos, k_pos, Skv: int, causal: bool, window: int,
              masked: bool):
     """One KV block of the online softmax: the reference's ``kv_step``.
     qb (B,cq,KH,G,D) and kb, vb (B,ck,KH,D) in the storage type; the scores
     and sums in float32 (its ``preferred_element_type``). ``masked`` is
     False for a block whose every (query, key) pair the mask keeps: the
-    reference's ``where`` changes nothing there. The running max is held
-    constant in the backward: the output does not depend on it (it cancels
-    between the sums), so the gradient is the reference's up to rounding,
-    without the max's backward passes over the scores."""
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), kb.float())
+    reference's ``where`` changes nothing there. The gradient flows through
+    the running max as in the reference (:class:`_BlockMax`). The
+    output does not depend on the max in exact arithmetic, but in rounding
+    its path takes back what the softmax's gradient leaves summed over a
+    query's keys (P is rounded to v's type in the product, not in ``l``).
+    Held constant, that residue, times a component every key shares, stays
+    in the query's gradient: in bf16 over whisper's cross keys, which share
+    their bias, the query's gradient erred 4x the reference's."""
+    qf, kf = qb.float(), kb.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
     if masked:
         ok = _mask(q_pos, k_pos, causal, window) & (k_pos < Skv)[None, :]
         s = torch.where(ok, s, NEG_INF)
-    m_new = torch.maximum(m, s.detach().amax(dim=-1))
+    m_new = torch.maximum(m, _BlockMax.apply(s.detach(), qf, kf))
     p = torch.exp(s - m_new[..., None])
     alpha = torch.exp(m - m_new)
     l_new = l * alpha + p.sum(dim=-1)

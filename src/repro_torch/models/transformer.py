@@ -1,14 +1,13 @@
 """Transformer stacks: parameter shape trees, the decoder's training
 forward, prefill and one decode step (dense, moe and vlm), and whisper's
-encoder.
+encoder and its cross-attention decoder's training forward.
 
 The reference scans one traced layer body over the stacked parameter tree;
 here each stack is a Python loop over the same stacked leaves, layer ``l``
 reading the views ``w[l]``. A moe layer's MLP is :func:`moe_ffn`. The
 enc-dec decoder's prefill and decode step live with their family in
-``models/zoo.py``, as in the reference; its training forward
-(``encdec_decoder_forward``) comes with the encdec loss (ROADMAP Queue 1
-item 10).
+``models/zoo.py``, as in the reference; its training forward is
+:func:`encdec_decoder_forward` here.
 """
 from __future__ import annotations
 
@@ -211,17 +210,88 @@ def decoder_decode_step(
 
 
 # ---------------------------------------------------------------------------
-# Encoder stack (whisper)
+# Encoder stack (whisper) and the cross-attention decoder's training forward
 # ---------------------------------------------------------------------------
 
 
+def _encoder_layer(lp: dict, h: torch.Tensor, cfg: ArchConfig, positions,
+                   train: bool) -> torch.Tensor:
+    h = h + L.attn_block(lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+                         positions=positions, causal=False, train=train)
+    return h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+
+
 def encoder_forward(layers_params: dict, h: torch.Tensor, cfg: ArchConfig,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, train: bool = False) -> torch.Tensor:
     """Pre-norm layers of non-causal self-attention (RoPE at ``positions``
-    where ``rope_theta`` > 0, as the reference's ``attn_block``) and an MLP."""
+    where ``rope_theta`` > 0, as the reference's ``attn_block``) and an MLP:
+    the prefill's on the flash-attention kernel, or with ``train`` on the
+    differentiable :func:`L.attention_train`, each layer then under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+    ``jax.checkpoint`` on its scan body)."""
+    remat = train and cfg.remat
     for i in range(n_stacked(layers_params)):
         lp = layer_params(layers_params, i)
-        h = h + L.attn_block(lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
-                             positions=positions, causal=False)
-        h = h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+        if remat:
+            h = checkpoint(_encoder_layer, lp, h, cfg, positions, train, use_reentrant=False)
+        else:
+            h = _encoder_layer(lp, h, cfg, positions, train)
+    return h
+
+
+def _train_cross_query(p: dict, hn: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The training forward's cross-attention query: ``hn @ wq_col`` plus
+    ``bq_col`` when ``cfg.qkv_bias``, no RoPE. The reference's prefill and
+    decode add no bias (``models/zoo.py``'s ``_cross_query``); each path
+    keeps its own."""
+    q = hn @ p["wq_col"]
+    if cfg.qkv_bias:
+        q = q + p["bq_col"]
+    return q.reshape(*hn.shape[:-1], cfg.n_heads, cfg.hd)
+
+
+def _cross_attention(p: dict, hn: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """One layer's cross-attention on the training path: K/V projected from
+    the encoder's rows (biases, no RoPE), the query of
+    :func:`_train_cross_query`, :func:`L.attention_train` over every
+    encoder row (its padded keys masked), then ``wo_row``. The reference
+    projects the K/V with ``attn_proj_qkv`` and drops its query;
+    ``attn_proj_kv`` computes the same K and V."""
+    B, S, _ = hn.shape
+    xk, xv = L.attn_proj_kv(p, enc_out, cfg)
+    att = L.attention_train(_train_cross_query(p, hn, cfg), xk, xv, causal=False)
+    return att.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo_row"]
+
+
+def _encdec_layer(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, cfg: ArchConfig,
+                  positions) -> torch.Tensor:
+    h = h + L.attn_block(lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
+                         positions=positions, causal=True, train=True)
+    h = h + _cross_attention(lp["xattn"], L.rmsnorm(h, lp["ln_x"], cfg.norm_eps), enc_out, cfg)
+    return h + L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+
+
+def encdec_decoder_forward(
+    layers_params: dict,
+    h: torch.Tensor,
+    enc_out: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    positions: torch.Tensor,
+    enc_positions: torch.Tensor,
+) -> torch.Tensor:
+    """The enc-dec decoder's training forward (the reference's): each layer
+    causal self-attention with RoPE at ``positions``, cross-attention over
+    ``enc_out`` (:func:`_cross_attention`), the MLP, all on
+    :func:`L.attention_train`; each layer under ``torch.utils.checkpoint``
+    when ``cfg.remat``. ``enc_positions`` is unused, as in the reference's
+    body: the cross K/V take no RoPE. It stays for the reference's
+    signature."""
+    for i in range(n_stacked(layers_params)):
+        lp = layer_params(layers_params, i)
+        if cfg.remat:
+            h = checkpoint(_encdec_layer, lp, h, enc_out, cfg, positions, use_reentrant=False)
+        else:
+            h = _encdec_layer(lp, h, enc_out, cfg, positions)
     return h

@@ -7,7 +7,7 @@ Every model exposes the reference's surface:
 
   shapes   — nested dict of param shapes (per-leaf dtype via cfg.dtype)
   init     — draw the parameters on the device from a seeded generator
-  loss     — train-mode forward → scalar loss (every family but encdec)
+  loss     — train-mode forward → scalar loss
   prefill  — full-prompt forward → (last logits, caches)
   decode   — one-token step over caches → (logits, caches)
 
@@ -36,14 +36,14 @@ would write past a full K/V cache raises ValueError before the write,
 where the reference drops the row silently.
 
 ``loss`` is the reference's ``_lm_loss`` for the decoder LMs (the vlm's
-over the text rows after the projected patches), ``_xlstm_loss`` and
-``_zamba_loss`` for the recurrent families, on the differentiable
-``attention_train``, never on a kernel; the train step in
+over the text rows after the projected patches), ``_whisper_loss`` for
+the enc-dec (its cross query with ``bq_col``, which the prefill's lacks),
+``_xlstm_loss`` and ``_zamba_loss`` for the recurrent families, on the
+differentiable ``attention_train``, never on a kernel; the train step in
 ``repro_torch.train`` takes its gradients. Under ``cfg.remat`` each
-decoder, Mamba2 and mLSTM layer of the loss's forward runs under
+decoder, encoder, Mamba2 and mLSTM layer of the loss's forward runs under
 ``torch.utils.checkpoint`` (an sLSTM layer's steps are checkpointed one
-by one). The encdec loss is not ported yet: its
-``loss`` raises NotImplementedError.
+by one).
 """
 from __future__ import annotations
 
@@ -63,6 +63,7 @@ from repro_torch.models.transformer import (
     decoder_layer_shapes,
     decoder_prefill,
     embed_lookup,
+    encdec_decoder_forward,
     encoder_forward,
     layer_params,
     mlp_param_shapes,
@@ -83,11 +84,13 @@ def _vlm_patches(cfg: ArchConfig) -> int:  # llava patch embeddings an image: st
     return cfg.frontend_tokens or 576
 
 
-def _frontend_input(batch: dict, key: str, rows: int, cfg: ArchConfig) -> torch.Tensor:
+def _frontend_input(batch: dict, key: str, rows: int, cfg: ArchConfig,
+                    what: str = "prefill") -> torch.Tensor:
     """The stub frontend's embeddings, ``batch[key]``; a batch without them
-    raises the reference's KeyError, saying what the prefill takes."""
+    raises the reference's KeyError, saying what the prefill (or ``what``)
+    takes."""
     if key not in batch:
-        raise KeyError(f"{key}: the {cfg.family} prefill takes precomputed (B, {rows}, "
+        raise KeyError(f"{key}: the {cfg.family} {what} takes precomputed (B, {rows}, "
                        f"{cfg.d_model}) {key} beside the tokens")
     return batch[key]
 
@@ -235,13 +238,6 @@ def _lm_loss(params, batch, cfg: ArchConfig):
                                vocab_size=cfg.vocab_size)
 
 
-def _whisper_loss_not_ported(params, batch, cfg: ArchConfig):
-    raise NotImplementedError(
-        f"{cfg.name}: the encdec loss (the reference's _whisper_loss with "
-        "encdec_decoder_forward) is not ported yet; it comes with the next training "
-        "slice (ROADMAP Queue 1 item 10)")
-
-
 def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
     h = _lm_embed_inputs(params, batch, cfg)
     B, S, _ = h.shape
@@ -296,22 +292,40 @@ def _sinusoid(S: int, D: int) -> np.ndarray:
     return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
 
 
-def _whisper_encode(params, frames, cfg: ArchConfig):
+def _whisper_encode(params, frames, cfg: ArchConfig, train: bool = False):
     """frames (B, Se, d_model) plus the sinusoid, in the model's dtype;
-    the encoder stack; its final norm."""
+    the encoder stack (the loss's with ``train``); its final norm."""
     B, Se, D = frames.shape
     dt = _dtype(cfg)
     sin = torch.from_numpy(_sinusoid(Se, D)).to(device=frames.device, dtype=dt)
     h = frames.to(dt) + sin[None]
     positions = torch.arange(Se, device=frames.device)[None, :].expand(B, Se)
-    h = encoder_forward(params["encoder_layers"], h, cfg, positions)
+    h = encoder_forward(params["encoder_layers"], h, cfg, positions, train=train)
     return L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _whisper_loss(params, batch, cfg: ArchConfig):
+    """The reference's: the frames encoded on the training path, the
+    tokens' embeddings through :func:`encdec_decoder_forward` (whose cross
+    query adds ``bq_col``), the final norm, the chunked loss."""
+    frames = _frontend_input(batch, "frames", _enc_frames(cfg), cfg, what="loss")
+    enc = _whisper_encode(params, frames, cfg, train=True)
+    tok = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    B, S, _ = tok.shape
+    Se = enc.shape[1]
+    positions = torch.arange(S, device=tok.device)[None, :].expand(B, S)
+    enc_positions = torch.arange(Se, device=tok.device)[None, :].expand(B, Se)
+    h = encdec_decoder_forward(params["layers"], tok, enc, cfg, positions=positions,
+                               enc_positions=enc_positions)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return L.xent_loss_chunked(h, params["out_embed"], batch["labels"],
+                               vocab_size=cfg.vocab_size)
 
 
 def _cross_query(lp, hn, cfg: ArchConfig):
     """The cross-attention query: ``hn @ xattn.wq_col``, with no bias and no
     RoPE, as the reference's prefill and decode compute it (its training
-    forward adds the bias)."""
+    forward adds the bias: ``transformer._train_cross_query``)."""
     q = hn @ lp["xattn"]["wq_col"]
     return q.reshape(*hn.shape[:-1], cfg.n_heads, cfg.hd)
 
@@ -646,7 +660,7 @@ _FAMILIES = {
     "dense": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
     "moe": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
     "vlm": (_lm_shapes, _lm_loss, _lm_prefill, _lm_decode),
-    "encdec": (_whisper_shapes, _whisper_loss_not_ported, _whisper_prefill, _whisper_decode),
+    "encdec": (_whisper_shapes, _whisper_loss, _whisper_prefill, _whisper_decode),
     "ssm": (_xlstm_shapes, _xlstm_loss, _xlstm_prefill, _xlstm_decode),
     "hybrid": (_zamba_shapes, _zamba_loss, _zamba_prefill, _zamba_decode),
 }

@@ -207,15 +207,6 @@ def test_moe_dropped_assignments_get_no_gradient():
                                    atol=GRAD_SCALE_TOL * float(g.abs().max()) + 1e-12)
 
 
-@pytest.mark.parametrize("name", ["whisper-small"])
-def test_unported_losses_raise_naming_the_roadmap(name):
-    from repro_torch.configs import reduced_config
-    from repro_torch.models import build_model
-
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model(reduced_config(name)).loss({}, {})
-
-
 # ---------------------------------------------------------------------------
 # Optimizers
 # ---------------------------------------------------------------------------
