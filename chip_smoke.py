@@ -80,6 +80,9 @@ path trains qwen2-0.5b at full width through
 ``repro_torch.launch.train.train_loop`` (the entry point of ``python -m
 repro_torch.launch.train --full``), resumes it from a checkpoint and
 serves the trained model from its checkpoint through ``ServeEngine``.
+Then the distributed pieces run on one NCCL rank: the two plans through
+``compile_plan_sharded``, the collectives, and qwen2-0.5b's steps through
+``make_train_step(model, mesh)``.
 
 In order it
 
@@ -328,13 +331,29 @@ In order it
    ``decode`` bitwise the eager one, its attention sites held against the
    plain versions and timed (36 ``flash_attention`` a prefill, 24
    ``decode_attention`` a step);
-19. prints the run's total time, the kernel table as one JSON line
+19. the sharded phase (``sharded_phase``), on one NCCL rank (NCCL refuses
+   two ranks on one card; world sizes above 1 are held on the CPU by
+   ``tests/test_torch_distributed.py``): the hospital query under ``dnn``
+   and ``sql`` (COUNT and SUM) and the dashboard plan without its means
+   through ``compile_plan_sharded`` over a ``(data 1, model 1)`` mesh,
+   bitwise the unsharded plan (the hospital COUNT also the host oracle's,
+   the dashboard also ``run_dashboard``'s), each timed sharded and
+   unsharded in turns; ``hierarchical_psum`` over ``(pod 1, data 1)`` and
+   ``compressed_gradient_update(axis_name="pod")`` on qwen2-0.5b's
+   parameter tree, bitwise the paths without a mesh; then qwen2-0.5b at
+   full width, 2 steps of 16 x 4,096 through ``make_train_step(model,
+   mesh)`` interleaved with 2 steps without a mesh from a copy of the same
+   state: the losses and every parameter and moment bitwise; the
+   ``sharded [...]:`` JSON line of the times; the counts, zeroed before,
+   must show ``featurize``, ``tree_gemm``, ``gather_join`` and
+   ``segment_agg`` launched;
+20. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
    included), the LM serving run, the analysis gate's scenarios, the moe
-   serving run, the recurrent runs, the families' runs and the trained
-   models' serving runs; ``sites``:
+   serving run, the recurrent runs, the families' runs, the trained
+   models' serving runs and the sharded phase; ``sites``:
    every site held and timed, the main path's and the extra ones) and,
    last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -495,6 +514,11 @@ ENC_GRAD_REL_TOL = 0.08
 ENC_SLICE_LEAVES = ("layers/xattn/wv_col", "layers/xattn/bv_col")
 ENC_ZERO_GRAD, ENC_ZERO_GRAD_BESIDE = "layers/xattn/bk_col", "layers/xattn/wv_col"
 ENC_ZERO_GRAD_TOL = 1e-4
+# The sharded phase: requests of each plan timed sharded and unsharded in
+# turns, and passes of each collective after an untimed one; qwen2-0.5b's
+# training steps through make_train_step with and
+# without a mesh (TRAIN_BATCH x TRAIN_SEQ, interleaved)
+SHARD_REQUESTS, SHARD_TRAIN_STEPS = 7, 2
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
 KERNELS = {
@@ -4863,6 +4887,166 @@ def encdec_training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
     return counts
 
 
+def sharded_phase(case, t: float, tables, dev, smi: str) -> dict[str, int]:
+    """The distributed pieces on NCCL at one rank (NCCL refuses two ranks on
+    one card; world sizes above 1 are held on the CPU by
+    ``tests/test_torch_distributed.py``): the hospital query under ``dnn``
+    and ``sql`` and the dashboard plan without its means through
+    ``compile_plan_sharded`` over a ``(data 1, model 1)`` mesh, bitwise
+    the unsharded plan; ``hierarchical_psum`` over ``(pod 1, data 1)`` and
+    ``compressed_gradient_update(axis_name="pod")`` on qwen2-0.5b's
+    parameter tree, bitwise the paths without a mesh; qwen2-0.5b at full
+    width trained ``SHARD_TRAIN_STEPS`` steps through ``make_train_step(model,
+    mesh)``, bitwise the same steps without one. Times sharded and
+    unsharded side by side: at one rank they are the cost of the slicing
+    and the collectives, not a speedup. Returns the phase's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.distributed import compressed_gradient_update, ef_init, hierarchical_psum
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    from repro_torch.launch.train import choose_accum_steps
+    from repro_torch.models import build_model
+    from repro_torch.relational.engine import (
+        Aggregate,
+        compile_plan,
+        compile_plan_sharded,
+        upload_database,
+    )
+    from repro_torch.sql.parser import parse_prediction_query
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.step import init_opt_state, make_train_step
+
+    stats: dict = {"card": smi}
+
+    def timed_pair(label, whole, sharded, same):
+        """Both once (checked with ``same``), then SHARD_REQUESTS of each in
+        turns; the median milliseconds of each to its result on the host
+        (the sharded plan's collectives included)."""
+        same(whole(), sharded())
+        ms = {"unsharded": [], "sharded": []}
+        for _ in range(SHARD_REQUESTS):
+            for name, call in (("unsharded", whole), ("sharded", sharded)):
+                t0 = time.perf_counter()
+                call().to_numpy()
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+        stats[label] = {k: float(np.median(v)) for k, v in ms.items()}
+
+    def timed_collective(label, call):
+        """``call()`` once untimed (the subgroups' NCCL communicators are
+        made on their first collective), then the median milliseconds of
+        SHARD_REQUESTS calls to the card's last operation; the last
+        result."""
+        out = call()
+        ms = []
+        for _ in range(SHARD_REQUESTS):
+            del out
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        stats[label] = float(np.median(ms))
+        return out
+
+    def table_bits(a, b, what):
+        check_bitwise(a.to_numpy(), b.to_numpy(), what)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(device=dev)
+        pod_data = make_mesh((1, 1), ("pod", "data"), dev)
+        zero_counts()
+        db = upload_database(case["tables"], dev)
+        query = ("SELECT COUNT(*), SUM(score) FROM PREDICT(model='m', data=patients) AS p "
+                 f"WHERE asthma = 1 AND score >= {t!r}")
+        want_count, _ = hospital_oracle(case, t)
+        for tf in ("dnn", "sql"):
+            plan, _ = RavenOptimizer(options=OptimizerOptions(transform=tf)).optimize(
+                parse_prediction_query(query, {"m": case["pipe"]}, case["tables"]))
+            whole, sharded = compile_plan(plan), compile_plan_sharded(plan, mesh, "patients")
+
+            def same(a, b, tf=tf):
+                table_bits(b, a, f"hospital {tf} sharded vs unsharded")
+                check(int(b.columns["count_rows"][0]) == want_count,
+                      (tf, b.to_numpy(), want_count))
+
+            timed_pair(f"hospital_{tf}_ms", lambda: whole(db, device=dev),
+                       lambda: sharded(db), same)
+        full = dashboard_plan()
+        plan = Aggregate(full.child, [a for a in full.aggs if a[1] != "mean"])
+        star = upload_database(tables, dev)
+        whole, sharded = compile_plan(plan), compile_plan_sharded(plan, mesh, "f")
+        ref = {k: v for k, v in run_dashboard(tables, dev, "on").items()
+               if not k.startswith("avg_")}
+        check_bitwise(whole(star, device=dev).to_numpy(), ref, "dashboard without means")
+        timed_pair("dashboard_ms", lambda: whole(star, device=dev), lambda: sharded(star),
+                   lambda a, b: table_bits(b, a, "dashboard sharded vs unsharded"))
+        counts = read_counts()
+        print(f"sharded phase: launches of the sharded and unsharded plans: {counts}",
+              flush=True)
+        check(all(counts[n] > 0 for n in ("featurize", "tree_gemm", "gather_join",
+                                          "segment_agg")), f"a kernel was not launched: {counts}")
+        del db, star
+
+        cfg = get_config(TRAIN_ARCH)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED), device=dev)
+        summed = timed_collective("hierarchical_psum_ms",
+                                  lambda: hierarchical_psum(params, pod_data, "data", "pod"))
+        for a, b in zip(tree_leaves(summed), tree_leaves(params)):
+            check(torch.equal(a, b), "hierarchical_psum at one rank is not its input")
+        del summed
+        state = ef_init(params)
+        meshed, meshed_state = timed_collective(
+            "compressed_all_reduce_ms",
+            lambda: compressed_gradient_update(params, state, axis_name="pod", mesh=pod_data))
+        plain, plain_state = compressed_gradient_update(params, state)
+        for a, b in zip(tree_leaves({"g": meshed, "r": meshed_state.residual}),
+                        tree_leaves({"g": plain, "r": plain_state.residual})):
+            check(torch.equal(a, b), "the int8 all-reduce at one rank is not the plain round")
+        del meshed, meshed_state, plain, plain_state, state
+        stats["params_gib"] = sum(p.numel() * p.element_size()
+                                  for p in tree_leaves(params)) / 2**30
+
+        opt = init_opt_state(model, params)
+        copy = tree_map(torch.clone, {"p": params, "o": opt})
+        states = {"unsharded": (params, opt), "sharded": (copy["p"], copy["o"])}
+        del copy
+        accum = choose_accum_steps(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+        steps = {"unsharded": make_train_step(model, lr=TRAIN_LR, accum_steps=accum),
+                 "sharded": make_train_step(model, mesh, lr=TRAIN_LR, accum_steps=accum)}
+        loader = TokenLoader(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             vocab=cfg.vocab_size, seed=TRAIN_SEED)
+        losses = {k: [] for k in steps}
+        step_s = {k: [] for k in steps}
+        for i in range(SHARD_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in loader.batch(i).items()}
+            for name, step in steps.items():
+                t0 = time.perf_counter()
+                p, o, metrics = step(*states[name], batch)
+                losses[name].append(float(metrics["loss"]))
+                step_s[name].append(time.perf_counter() - t0)
+                states[name] = (p, o)
+        check(losses["sharded"] == losses["unsharded"], losses)
+        for a, b in zip(tree_leaves(dict(enumerate(states["sharded"]))),
+                        tree_leaves(dict(enumerate(states["unsharded"])))):
+            check(torch.equal(a, b), "the meshed steps' state is not the unmeshed steps'")
+        stats.update(train_accum_steps=accum, train_losses=losses["sharded"],
+                     train_step_s=step_s)
+        print(f"sharded phase: {TRAIN_ARCH} {SHARD_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} through make_train_step(model, mesh): losses and every parameter "
+              "and moment bitwise the steps without a mesh", flush=True)
+        print(f"sharded [{smi}]:", json.dumps(stats), flush=True)
+        del states, params, opt, p, o
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -5038,6 +5222,10 @@ def main() -> int:
     for name in KERNELS:
         counts[name] += trained[name]
     mark("encdec training phase")
+    sharded = sharded_phase(case, thresholds[1], tables, dev, smi)
+    for name in KERNELS:
+        counts[name] += sharded[name]
+    mark("sharded phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():

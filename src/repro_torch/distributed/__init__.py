@@ -1,8 +1,7 @@
-"""Fault tolerance and gradient compression for the train loop: the
-straggler monitor and step timer, and int8 error-feedback compression's
-single-participant round. The reference's collectives
-(``hierarchical_psum``) need more than one device and are not ported
-(ROADMAP Queue 1 item 10, distributed)."""
+"""Fault tolerance, gradient compression and collectives for the train
+loop: the straggler monitor and step timer, int8 error-feedback compression
+(one participant's round, or the int8 all-reduce over a mesh axis) and the
+two-level gradient reduction ``hierarchical_psum``."""
 from repro_torch.distributed.compression import (
     ErrorFeedbackState,
     compressed_gradient_update,
@@ -11,6 +10,7 @@ from repro_torch.distributed.compression import (
     ef_int8_decompress,
 )
 from repro_torch.distributed.straggler import StepTimer, StragglerMonitor
+from repro_torch.distributed.collectives import hierarchical_psum
 
 __all__ = [
     "ef_init",
@@ -20,4 +20,5 @@ __all__ = [
     "compressed_gradient_update",
     "StepTimer",
     "StragglerMonitor",
+    "hierarchical_psum",
 ]

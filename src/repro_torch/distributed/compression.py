@@ -8,16 +8,16 @@ family). int8 cuts transmitted bytes 4× vs f32 (2× vs bf16).
 
 The reference's functions on trees of tensors (nested dicts), in its order
 of operations: ``torch.round`` rounds halves to even, as ``jnp.round``
-does. The train loop owns the residual state. Only the single-participant
-round (``axis_name=None``) is ported: the all-reduce across participants
-needs more than one device (ROADMAP Queue 1 item 10, distributed).
+does. The train loop owns the residual state.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.collectives import axis_group, axis_size
 from repro_torch.train.optimizer import tree_map
 
 
@@ -69,14 +69,34 @@ def ef_int8_decompress(q: Any, scale: Any) -> Any:
     return tree_map(_dequant_leaf, q, scale)
 
 
-def compressed_gradient_update(grads, state, *, axis_name: str | None = None):
-    """Quantize → dequantize with error feedback: the round one participant
-    makes (the reference's ``axis_name=None``). Returns (dequantized
-    gradients, new state)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"compressed_gradient_update(axis_name={axis_name!r}): the int8 all-reduce "
-            "across participants needs more than one device and is not ported "
-            "(ROADMAP Queue 1 item 10, distributed)")
-    q, s, new_state = ef_int8_compress(grads, state)
-    return ef_int8_decompress(q, s), new_state
+def compressed_gradient_update(grads, state, *, axis_name: str | None = None, mesh=None):
+    """Quantize → (optionally all-reduce over ``mesh``'s ``axis_name``) →
+    dequantize, with error feedback. Returns (gradients, new state).
+
+    With ``axis_name``, the ranks along it first agree on a per-row scale (a
+    MAX all-reduce of each row's largest magnitude, O(rows) next to the
+    payload), then the int8 payloads are summed as int32 (int8 would
+    overflow past 127 participants) and each rank rebuilds the float32
+    mean. Without it, one participant's quantize/dequantize round."""
+    if axis_name is None:
+        q, s, new_state = ef_int8_compress(grads, state)
+        return ef_int8_decompress(q, s), new_state
+    if mesh is None:
+        raise ValueError(f"compressed_gradient_update(axis_name={axis_name!r}) needs the mesh "
+                         "that names the axis")
+    group, n = axis_group(mesh, axis_name), axis_size(mesh, axis_name)
+
+    def agreed_scale(c):
+        amax = _amax(c)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        return _scale_of(amax)
+
+    def summed(qq):
+        q32 = qq.to(torch.int32)
+        dist.all_reduce(q32, group=group)
+        return q32
+
+    corrected = tree_map(lambda g, r: g.float() + r, grads, state.residual)
+    q, s, new_state = ef_int8_compress(grads, state, tree_map(agreed_scale, corrected))
+    deq = tree_map(lambda qq, ss: summed(qq).float() * ss / n, q, s)
+    return deq, new_state

@@ -11,9 +11,10 @@ Wires together the fault-tolerance layers of the reference's driver:
   * preemption handling (SIGTERM → final blocking checkpoint → clean exit),
   * optional int8 error-feedback gradient compression.
 
-One device: the reference's mesh has no counterpart here (ROADMAP Queue 1
-item 10, distributed). ``float(metrics["loss"])`` inside the ``StepTimer``
-waits for the step, so a step's time is the card's.
+One device: the data-parallel step over a mesh is ``make_train_step(model,
+mesh)``; this loop under ``torch.distributed`` comes with the sharded
+parameters (ROADMAP Queue 1 item 10). ``float(metrics["loss"])`` inside the
+``StepTimer`` waits for the step, so a step's time is the card's.
 """
 from __future__ import annotations
 

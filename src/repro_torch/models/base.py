@@ -2,8 +2,10 @@
 
 Parameters are nested dicts of tensors with *stacked* per-layer leaves (a
 leading L dimension), the reference package's layout; the port runs a layer
-stack as a Python loop over views ``w[l]`` of those leaves. The mesh and
-sharding rules of the reference come with the distributed port.
+stack as a Python loop over views ``w[l]`` of those leaves. The meshes are
+:mod:`repro_torch.launch.mesh`'s; the reference's sharding rules for the
+parameters (``fsdp_axes``, ``leaf_spec``, ``shardings_for``) come with the
+next slice (ROADMAP Queue 1 item 10).
 :func:`active_param_count` gives a step's model FLOPs (6 · active
 parameters · tokens).
 """

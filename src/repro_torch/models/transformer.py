@@ -12,8 +12,18 @@ enc-dec decoder's prefill and decode step live with their family in
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.collectives import (
+    all_gather_rows,
+    axis_group,
+    axis_index,
+    axis_size,
+    data_axes,
+    data_shards,
+    has_axis,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.moe import moe_ffn, moe_param_shapes
@@ -92,12 +102,41 @@ def n_stacked(stacked: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Embedding (the mesh-sharded lookup comes with distributed)
+# Embedding with vocab sharding
 # ---------------------------------------------------------------------------
 
 
-def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return L.embed_tokens(embed, tokens)
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``embed[tokens]``. With a mesh that has a ``model`` axis, the
+    reference's vocab-sharded lookup: each rank looks the tokens up in its
+    ``V / m`` row slice of the (replicated) table, zeroes the misses and
+    SUM all-reduces over the model group. The batch is split over the data
+    axes where it divides them (not the B = 1 decode cells) and gathered
+    back, so every rank returns the whole (B, S, D) lookup, as the
+    reference's ``shard_map`` does. The collectives carry no gradient:
+    training takes each rank's batch slice through ``make_train_step(model,
+    mesh)``, whose loss runs without a mesh."""
+    if not has_axis(mesh, "model"):
+        return L.embed_tokens(embed, tokens)
+    if torch.is_grad_enabled() and embed.requires_grad:
+        raise ValueError("the vocab-sharded lookup has no backward: train through "
+                         "make_train_step(model, mesh)")
+    m, V = axis_size(mesh, "model"), embed.shape[0]
+    if V % m:
+        raise ValueError(f"a vocab of {V} rows does not split over the {m} ranks of 'model'")
+    Vl = V // m
+    lo = axis_index(mesh, "model") * Vl
+    axes = data_axes(mesh)
+    i, d = data_shards(mesh)
+    B = tokens.shape[0]
+    split = B % d == 0 and d > 1
+    t = tokens[i * B // d:(i + 1) * B // d] if split else tokens
+    ids = t - lo
+    ok = (ids >= 0) & (ids < Vl)
+    out = L.embed_tokens(embed[lo:lo + Vl], torch.clamp(ids, 0, Vl - 1))
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    dist.all_reduce(out, group=axis_group(mesh, "model"))
+    return all_gather_rows(out, mesh, axes) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +165,9 @@ def decoder_forward(
     (differentiable; the kernels have no backward), each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
     ``jax.checkpoint`` on its scan body), so the backward keeps one
-    (B, S, D) input a layer. The reference's ``mesh``, ``seq_shard`` and
-    ``seq_gather`` shard the sequence over a mesh and have no counterpart
-    on one card."""
+    (B, S, D) input a layer. The reference's ``seq_shard`` and
+    ``seq_gather`` constrain the sequence's layout over a mesh of sharded
+    parameters, which come with the next slice (ROADMAP Queue 1 item 10)."""
     for i in range(n_stacked(layers_params)):
         lp = layer_params(layers_params, i)
         if cfg.remat:

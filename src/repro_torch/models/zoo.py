@@ -185,17 +185,20 @@ class Model(nn.Module):
         """The held leaves as the nested parameter dict (no copies)."""
         return _nest({k: v.data for k, v in self.leaves.items()})
 
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+    def loss(self, params: dict, batch: dict, mesh=None) -> torch.Tensor:
         """The train-mode forward's mean cross-entropy over ``batch``'s
         labels (those below 0 ignored): a float32 scalar. Differentiable in
-        the leaves of ``params`` that require grad."""
-        return self._loss(params, batch, self.cfg)
+        the leaves of ``params`` that require grad, without a mesh. On a
+        mesh with a ``model`` axis the token embedding is the
+        vocab-sharded lookup (:func:`embed_lookup`), as in ``prefill`` and
+        ``decode``."""
+        return self._loss(params, batch, self.cfg, mesh=mesh)
 
-    def prefill(self, params: dict, batch: dict, cache_len: int | None = None):
-        return self._prefill(params, batch, self.cfg, cache_len=cache_len)
+    def prefill(self, params: dict, batch: dict, cache_len: int | None = None, *, mesh=None):
+        return self._prefill(params, batch, self.cfg, cache_len=cache_len, mesh=mesh)
 
-    def decode(self, params: dict, batch: dict, caches: tuple):
-        return self._decode(params, batch, caches, self.cfg)
+    def decode(self, params: dict, batch: dict, caches: tuple, mesh=None):
+        return self._decode(params, batch, caches, self.cfg, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -215,18 +218,18 @@ def _lm_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
-def _lm_embed_inputs(params, batch, cfg):
+def _lm_embed_inputs(params, batch, cfg, mesh=None):
     """The tokens' embeddings; for the vlm, after the projected patches
     (``batch["patches"]``, (B, P, d_model), cast to the model's dtype)."""
-    tok_emb = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    tok_emb = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     if cfg.frontend == "vision":
         patches = _frontend_input(batch, "patches", _vlm_patches(cfg), cfg).to(_dtype(cfg))
         return torch.cat([patches @ params["vision_proj_col"], tok_emb], dim=1)
     return tok_emb
 
 
-def _lm_loss(params, batch, cfg: ArchConfig):
-    h = _lm_embed_inputs(params, batch, cfg)
+def _lm_loss(params, batch, cfg: ArchConfig, mesh=None):
+    h = _lm_embed_inputs(params, batch, cfg, mesh)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     h = decoder_forward(params["layers"], h, cfg, positions=positions,
@@ -238,8 +241,8 @@ def _lm_loss(params, batch, cfg: ArchConfig):
                                vocab_size=cfg.vocab_size)
 
 
-def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
-    h = _lm_embed_inputs(params, batch, cfg)
+def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None, mesh=None):
+    h = _lm_embed_inputs(params, batch, cfg, mesh)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     h, caches = decoder_prefill(
@@ -250,9 +253,9 @@ def _lm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
     return _head(h, params, cfg), caches
 
 
-def _lm_decode(params, batch, caches, cfg: ArchConfig):
+def _lm_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     tokens, lengths = batch["tokens"], batch["lengths"]
-    h = embed_lookup(params["embed"], tokens[:, None])[:, 0].to(_dtype(cfg))
+    h = embed_lookup(params["embed"], tokens[:, None], mesh)[:, 0].to(_dtype(cfg))
     h, caches = decoder_decode_step(
         params["layers"], h, caches, lengths, cfg, window=cfg.sliding_window
     )
@@ -304,13 +307,13 @@ def _whisper_encode(params, frames, cfg: ArchConfig, train: bool = False):
     return L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
-def _whisper_loss(params, batch, cfg: ArchConfig):
+def _whisper_loss(params, batch, cfg: ArchConfig, mesh=None):
     """The reference's: the frames encoded on the training path, the
     tokens' embeddings through :func:`encdec_decoder_forward` (whose cross
     query adds ``bq_col``), the final norm, the chunked loss."""
     frames = _frontend_input(batch, "frames", _enc_frames(cfg), cfg, what="loss")
     enc = _whisper_encode(params, frames, cfg, train=True)
-    tok = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    tok = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     B, S, _ = tok.shape
     Se = enc.shape[1]
     positions = torch.arange(S, device=tok.device)[None, :].expand(B, S)
@@ -330,7 +333,7 @@ def _cross_query(lp, hn, cfg: ArchConfig):
     return q.reshape(*hn.shape[:-1], cfg.n_heads, cfg.hd)
 
 
-def _whisper_prefill(params, batch, cfg: ArchConfig, cache_len=None):
+def _whisper_prefill(params, batch, cfg: ArchConfig, cache_len=None, mesh=None):
     """Encode the frames, project each decoder layer's cross K/V from the
     encoder's output (biases, no RoPE), then run the decoder over the
     prompt: causal self-attention with RoPE, cross-attention over the
@@ -341,7 +344,7 @@ def _whisper_prefill(params, batch, cfg: ArchConfig, cache_len=None):
     layers = params["layers"]
     n_layers = n_stacked(layers)
     B, Se, _ = enc.shape
-    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    h = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     S = h.shape[1]
     cache_len = cache_len or S
     KH, hd = cfg.n_kv_heads, cfg.hd
@@ -369,7 +372,7 @@ def _whisper_prefill(params, batch, cfg: ArchConfig, cache_len=None):
     return _head(h, params, cfg), (kcs, vcs, xk, xv)
 
 
-def _whisper_decode(params, batch, caches, cfg: ArchConfig):
+def _whisper_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     """One token for every sequence: its self K/V row written at
     ``lengths`` (in place), self-attention over lengths + 1 rows,
     cross-attention over every encoder row. A full self cache raises
@@ -377,7 +380,7 @@ def _whisper_decode(params, batch, caches, cfg: ArchConfig):
     kcs, vcs, xk, xv = caches
     tokens, lengths = batch["tokens"], batch["lengths"]
     B = tokens.shape[0]
-    h = embed_lookup(params["embed"], tokens[:, None])[:, 0].to(_dtype(cfg))
+    h = embed_lookup(params["embed"], tokens[:, None], mesh)[:, 0].to(_dtype(cfg))
     valid = L.decode_rows(lengths, kcs.shape[2])
     enc_len = torch.full((B,), xk.shape[2], dtype=torch.int32, device=h.device)
     rows = torch.arange(B, device=h.device)
@@ -457,18 +460,18 @@ def _xlstm_forward(params, h, cfg: ArchConfig, train: bool = False):
     return h
 
 
-def _xlstm_loss(params, batch, cfg: ArchConfig):
-    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+def _xlstm_loss(params, batch, cfg: ArchConfig, mesh=None):
+    h = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     h = _xlstm_forward(params, h, cfg, train=True)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.xent_loss_chunked(h, params["out_embed"], batch["labels"],
                                vocab_size=cfg.vocab_size)
 
 
-def _xlstm_prefill(params, batch, cfg: ArchConfig, cache_len=None):
+def _xlstm_prefill(params, batch, cfg: ArchConfig, cache_len=None, mesh=None):
     """The full forward and the last logits, with zeroed state (the
     reference's dry-run-sufficient prefill)."""
-    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    h = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     h = _xlstm_forward(params, h, cfg)
     hl = L.rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
     return _head(hl, params, cfg), _xlstm_zero_state(cfg, h.shape[0], _dtype(cfg), h.device)
@@ -492,10 +495,10 @@ def _xlstm_zero_state(cfg: ArchConfig, B: int, dt, device):
     )
 
 
-def _xlstm_decode(params, batch, caches, cfg: ArchConfig):
+def _xlstm_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     ng, mpg, _ = _xlstm_layout(cfg)
     mh, mn, sc, sn, sm, sy = caches
-    h = embed_lookup(params["embed"], batch["tokens"][:, None])[:, 0].to(_dtype(cfg))
+    h = embed_lookup(params["embed"], batch["tokens"][:, None], mesh)[:, 0].to(_dtype(cfg))
     for g in range(ng):
         for j in range(mpg):
             i = g * mpg + j
@@ -568,8 +571,8 @@ def _zamba_forward(params, h, cfg: ArchConfig, positions, train: bool = False):
     return h
 
 
-def _zamba_loss(params, batch, cfg: ArchConfig):
-    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+def _zamba_loss(params, batch, cfg: ArchConfig, mesh=None):
+    h = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     B, Ss, _ = h.shape
     positions = torch.arange(Ss, device=h.device)[None, :].expand(B, Ss)
     h = _zamba_forward(params, h, cfg, positions, train=True)
@@ -578,10 +581,10 @@ def _zamba_loss(params, batch, cfg: ArchConfig):
                                vocab_size=cfg.vocab_size)
 
 
-def _zamba_prefill(params, batch, cfg: ArchConfig, cache_len=None):
+def _zamba_prefill(params, batch, cfg: ArchConfig, cache_len=None, mesh=None):
     """The full forward and the last logits, with zeroed state and caches
     of min(S, window) rows (the reference's dry-run-sufficient prefill)."""
-    h = embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    h = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     B, Ss, _ = h.shape
     positions = torch.arange(Ss, device=h.device)[None, :].expand(B, Ss)
     h = _zamba_forward(params, h, cfg, positions)
@@ -607,7 +610,7 @@ def _zamba_zero_state(cfg: ArchConfig, B: int, S_cache: int, dt, device):
     )
 
 
-def _zamba_decode(params, batch, caches, cfg: ArchConfig):
+def _zamba_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     """One token for every sequence. The shared block writes its K/V row at
     ``lengths mod Sw`` of its ring buffer and attends min(lengths + 1, Sw)
     rows (the reference's decode passes no window: the ring is the
@@ -616,7 +619,7 @@ def _zamba_decode(params, batch, caches, cfg: ArchConfig):
     tokens, lengths = batch["tokens"], batch["lengths"]
     B = tokens.shape[0]
     Sw = kcs.shape[2]
-    h = embed_lookup(params["embed"], tokens[:, None])[:, 0].to(_dtype(cfg))
+    h = embed_lookup(params["embed"], tokens[:, None], mesh)[:, 0].to(_dtype(cfg))
     ng, k, rem = _zamba_layout(cfg)
     sh = params["shared"]
     slot = torch.remainder(lengths, Sw)  # the ring buffer's row for this token

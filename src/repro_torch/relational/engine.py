@@ -25,6 +25,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.exec.faults import maybe_inject
+from repro_torch.distributed.collectives import (
+    all_gather_rows,
+    axis_group,
+    axis_index,
+    axis_size,
+)
 from repro_torch.relational.expr import Expr
 from repro_torch.relational.table import Table, to_device
 
@@ -809,3 +815,110 @@ def plan_params(plan: PhysicalPlan) -> set[str]:
             for e in p.exprs.values():
                 names |= params_of(e)
     return names
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel execution over a mesh axis
+# ---------------------------------------------------------------------------
+
+SHARD_COUNT = "__shard_count__"  # the hidden count a sharded MIN/MAX reads
+
+
+def compile_plan_sharded(plan: PhysicalPlan, mesh, fact_table: str,
+                         axis: str = "data") -> Callable[[dict], Table]:
+    """Shard the fact table's rows over ``mesh``'s ``axis``; every other
+    table whole on every rank. Returns ``run(database) -> Table``, to be
+    called on every rank of the axis.
+
+    Only for a plan whose stage graph is one pure stage (MLtoSQL / MLtoDNN
+    output). Each rank runs the plan, compiled as :func:`compile_plan`
+    compiles it, on its contiguous slice of the fact table's rows (the
+    kernels run there as they do unsharded), then:
+
+    * an aggregate at the plan's root reduces over the axis's group: COUNT
+      and SUM by a SUM all-reduce (the reference's ``psum``); MIN and MAX by
+      MIN and MAX all-reduces, a shard without a valid row counting as
+      ±inf and a NaN in any shard giving NaN (a flag reduced beside the
+      value: gloo's MIN keeps or drops a NaN by the ranks' order), so that
+      they equal the unsharded plan's, 0.0 where no row is valid at all.
+      MEAN is refused: ask for SUM and COUNT and divide (the reference's
+      ``psum`` of a mean, a min or a max is |axis| times the answer);
+    * a plan without an aggregate all-gathers each output column and
+      ``valid`` in rank order, so every rank holds the global Table.
+
+    A fact table whose rows do not split evenly over the axis is refused,
+    as ``shard_map`` refuses it. The output columns come in the stage's
+    ``out_columns`` order (the reference's ``_out_cols``), the same on
+    every rank, so the ranks make the same collectives in the same order.
+    The plan runs on the mesh's device: the card (NCCL) or the CPU (gloo).
+    """
+    graph = build_stage_graph(plan)
+    if not (len(graph.stages) == 1 and graph.is_pure):
+        raise ValueError("sharded execution requires a host-boundary-free plan; its stages are "
+                         f"{[s.kind for s in graph.stages]}")
+    aggs = list(plan.aggs) if isinstance(plan, Aggregate) else None
+    if aggs is None and graph.has_aggregate:
+        raise ValueError("sharded execution reduces an aggregate at the plan's root only")
+    if aggs is not None:
+        means = [name for name, op, _ in aggs if op == "mean"]
+        if means:
+            raise ValueError(f"a sharded plan cannot reduce the mean {means}: ask for SUM and "
+                             "COUNT and divide")
+        if any(op in ("min", "max") for _, op, _ in aggs):
+            plan = Aggregate(plan.child, [*aggs, (SHARD_COUNT, "count", aggs[0][2])])
+    compiled = compile_plan(plan)
+    out_cols = list(graph.stages[0].out_columns)
+    dev = resolve_device(mesh.device_type)
+    k, r = axis_size(mesh, axis), axis_index(mesh, axis)
+    group = axis_group(mesh, axis)
+
+    def run(database) -> Table:
+        fact = database[fact_table]
+        n = int(next(iter(fact.values())).shape[0])
+        if n % k:
+            raise ValueError(f"{fact_table!r} has {n} rows, which do not split over the {k} "
+                             f"ranks of axis {axis!r}")
+        cols = {c: v[r * n // k:(r + 1) * n // k] for c, v in fact.items()}
+        if isinstance(database, Database) and database.device == dev:
+            local = database.replace(fact_table, cols)
+        else:
+            local = upload_database({**database, fact_table: cols}, dev)
+        table = compiled(local, device=dev)
+        if aggs is None:
+            return Table({c: all_gather_rows(table.columns[c], mesh, (axis,)) for c in out_cols},
+                         all_gather_rows(table.valid, mesh, (axis,)))
+        return Table(_reduce_aggregates(table.columns, aggs, group), table.valid)
+
+    return run
+
+
+def _reduce_aggregates(cols: dict, aggs: list, group) -> dict:
+    """One rank's global fold reduced over ``group`` in two collectives
+    (see :func:`compile_plan_sharded`): a SUM all-reduce of the COUNTs and
+    SUMs, with the hidden row count and the extremes' NaN flags beside
+    them, and a MIN all-reduce of the MINs and the negated MAXs (negation
+    is exact)."""
+    import torch.distributed as dist
+
+    def all_reduce(parts: list, op) -> list:
+        flat = torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
+        dist.all_reduce(flat, op=op, group=group)
+        return list(flat.split([p.numel() for p in parts]))
+
+    sums = [name for name, op, _ in aggs if op in ("count", "sum")]
+    ext = [(name, 1.0 if op == "min" else -1.0) for name, op, _ in aggs
+           if op in ("min", "max")]
+    parts = [cols[n] for n in sums]
+    if ext:
+        parts += [cols[SHARD_COUNT]] + [torch.isnan(cols[n]) for n, _ in ext]
+    summed = all_reduce(parts, dist.ReduceOp.SUM)
+    out = {name: v.to(cols[name].dtype) for name, v in zip(sums, summed)}
+    if ext:
+        total, nans = summed[len(sums)], summed[len(sums) + 1:]
+        mine = cols[SHARD_COUNT] > 0  # a shard without a valid row: +inf, ignored
+        least = all_reduce([torch.where(mine, sign * cols[n], float("inf")) for n, sign in ext],
+                           dist.ReduceOp.MIN)
+        for (name, sign), v, nan in zip(ext, least, nans):
+            v = torch.where(total > 0, sign * v, 0.0)
+            out[name] = torch.where(nan > 0, float("nan"), v).to(cols[name].dtype)
+    return {name: out[name] for name, _, _ in aggs}

@@ -9,12 +9,25 @@ see the update. Gradient accumulation splits the batch along its leading
 dimension into ``accum_steps`` microbatches, scales each microbatch's loss
 by ``1/accum_steps`` inside the differentiated function, and sums the
 gradients into accumulators of the optimizer's dtype, as the reference's
-``lax.scan`` does.
+``lax.scan`` does. Over a mesh the step is data-parallel, its collectives
+explicit (:func:`make_train_step`).
 """
 from __future__ import annotations
 
-import torch
+import contextlib
 
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.collectives import (
+    axis_group,
+    axis_size,
+    data_axes,
+    data_shards,
+    has_axis,
+    hierarchical_psum,
+)
+from repro_torch.models.moe import sharded_batch
 from repro_torch.train.optimizer import (
     adafactor_init,
     adafactor_update,
@@ -68,34 +81,81 @@ def loss_and_grads(loss_fn, params, batch, scale: float = 1.0):
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
-def make_train_step(model, lr: float = 3e-4, accum_steps: int = 1):
+def make_train_step(model, mesh=None, lr: float = 3e-4, accum_steps: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: ``metrics`` holds the loss (a float32 tensor on the
     device), ``grad_norm`` over the float32 gradients and ``grad_norms``,
-    each leaf's by its path (``layers/attn/wq_col``)."""
+    each leaf's by its path (``layers/attn/wq_col``).
+
+    With a ``mesh``, data parallelism over its ``data`` (and ``pod``)
+    axes, the reference's step jitted with the batch sharded over them made
+    explicit: the parameters and optimizer state are replicated, each rank
+    takes its contiguous slice of every microbatch (pod-major), and the
+    gradient is summed with :func:`hierarchical_psum` before the update,
+    which every rank then makes alike. The loss is a mean over the labels
+    >= 0, and ranks may hold different counts of them, so each rank's loss
+    (and so its gradient) is weighted by its count over the all-reduced
+    total before the sum: the sum is then the whole batch's mean and its
+    gradient. ``grad_norm`` and ``grad_norms`` are the summed gradient's.
+    A moe layer's blocks, capacity and positions are the whole
+    microbatch's (:func:`~repro_torch.models.moe.sharded_batch`), so the
+    ranks drop the assignments the reference drops. A ``model`` axis of more than one rank (sharded
+    parameters) is refused."""
     cfg = model.cfg
     update = adamw_update if cfg.optimizer == "adamw" else adafactor_update
     acc_dtype = torch.bfloat16 if cfg.optimizer_dtype == "bfloat16" else torch.float32
+    if mesh is not None:
+        if not has_axis(mesh, "data"):
+            raise ValueError(f"a data-parallel step needs a 'data' axis; the mesh has "
+                             f"{mesh.mesh_dim_names}")
+        if has_axis(mesh, "model") and axis_size(mesh, "model") > 1:
+            raise ValueError("a 'model' axis of more than one rank shards the parameters, "
+                             "which this step does not: replicate them over a (data, model=1) mesh")
+    shard, n_shards = data_shards(mesh)
+
+    def weights(mbs: list[dict]) -> list[float]:
+        """Each microbatch's loss weight on this rank: its count of labels
+        >= 0 over the count across the data axes (1.0 without a mesh)."""
+        if mesh is None:
+            return [1.0] * len(mbs)
+        mine = torch.stack([(mb["labels"] >= 0).sum() for mb in mbs]).to(torch.float32)
+        total = mine.clone()
+        for a in data_axes(mesh):
+            dist.all_reduce(total, group=axis_group(mesh, a))
+        return [max(m, 1.0) / max(t, 1.0) for m, t in zip(mine.tolist(), total.tolist())]
 
     def train_step(params, opt_state, batch):
         B = next(iter(batch.values())).shape[0]
         if B % accum_steps:
             # the reference's reshape into microbatches refuses it too
             raise ValueError(f"a batch of {B} does not split into {accum_steps} microbatches")
-        if accum_steps == 1:
-            loss, grads = loss_and_grads(model.loss, params, batch)
-        else:
-            inv = 1.0 / accum_steps
-            n = B // accum_steps
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                                   device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-            for i in range(accum_steps):
-                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, g = loss_and_grads(model.loss, params, mb, scale=inv)
-                tree_map(lambda a, gg: a.add_(gg.to(acc_dtype)), grads, g)
-                loss = loss + l
-                del g
+        n = B // accum_steps
+        if n % n_shards:
+            raise ValueError(f"a microbatch of {n} does not split over {n_shards} data ranks")
+        m = n // n_shards
+        lo = shard * m
+        mbs = [{k: v[i * n + lo:i * n + lo + m] for k, v in batch.items()}
+               for i in range(accum_steps)]
+        ws = weights(mbs)
+        # a moe layer routes each microbatch as a whole (moe.sharded_batch)
+        with sharded_batch(mesh, n) if mesh is not None else contextlib.nullcontext():
+            if accum_steps == 1:
+                loss, grads = loss_and_grads(model.loss, params, mbs[0], scale=ws[0])
+            else:
+                inv = 1.0 / accum_steps
+                grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                                       device=p.device), params)
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=tree_leaves(params)[0].device)
+                for mb, w in zip(mbs, ws):
+                    l, g = loss_and_grads(model.loss, params, mb, scale=inv * w)
+                    tree_map(lambda a, gg: a.add_(gg.to(acc_dtype)), grads, g)
+                    loss = loss + l
+                    del g
+        if mesh is not None:
+            grads = hierarchical_psum(grads, mesh, "data", "pod")
+            for a in data_axes(mesh):
+                dist.all_reduce(loss, group=axis_group(mesh, a))
         params, opt_state = update(grads, opt_state, params, lr=lr)
         sq = {path: torch.sum(torch.square(g.float())) for path, g in _flat(grads).items()}
         gnorm = torch.sqrt(sum(sq.values()))

@@ -386,7 +386,9 @@ def test_compression_payloads_and_residuals_are_bitwise_the_reference():
         for k in g:
             assert _np(deq[k]).tobytes() == np.asarray(jdeq[k]).tobytes(), k
             assert _np(st.residual[k]).tobytes() == np.asarray(jst.residual[k]).tobytes(), k
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the all-reduce over an axis needs the mesh that names it
+    # (tests/test_torch_distributed.py runs it over four ranks)
+    with pytest.raises(ValueError, match="needs the mesh that names the axis"):
         compressed_gradient_update(deq, st, axis_name="pod")
 
 

@@ -2,7 +2,7 @@
 ``chip_smoke.py``'s helpers and shapes:
 
     python3 tools/attention_train_probe.py time      # what the running max's gradient costs
-    python3 tools/attention_train_probe.py whisper   # the bf16 cross gradient after training
+    python3 tools/attention_train_probe.py whisper OUT_DIR   # the bf16 cross gradient after training
 
 ``time``: training steps of qwen2-0.5b (16 x 4,096, as ``chip_smoke.py``
 trains it) and of zamba2-7b at 13 layers (8 x 4,096) with the online
@@ -19,7 +19,10 @@ it, then one step's gradient in bf16 against float32 by leaf at its
 check batch (2 clips, 1,500 frames, S = 448), with ``attention_train``
 (A), a plain softmax attention on the same rounding points (B: scores and
 sums in float32, P rounded to v's type in the product) and
-``attention_train`` on float32 inputs (C).
+``attention_train`` on float32 inputs (C); then the decoder layer whose
+slice of the cross query's weight errs most under A has its cross
+attention's inputs and output gradient dumped, in both steps, into
+``OUT_DIR`` for ``tools/whisper_cross_backward.py``.
 """
 from __future__ import annotations
 
@@ -170,7 +173,7 @@ def plain_attention(q, k, v, *, causal=True, window=0, scale=None, **_):
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def probe_whisper(dev) -> dict:
+def probe_whisper(dev, out_dir: Path) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.loader import TokenLoader
     from repro_torch.models import layers as L
@@ -205,23 +208,78 @@ def probe_whisper(dev) -> dict:
         finally:
             L.attention_train = real
         errs = cs.rel_errors(g16, g32)
-        del g16
         out[name] = {"cross_qk": {k: errs[k] for k in CROSS_QK},
                      "others_max": max(e for k, e in errs.items() if k not in CROSS_QK)}
+        if attend is real:  # each decoder layer's slice of the cross query's weight
+            leaf = "layers/xattn/wq_col"
+            out[name]["wq_col_by_layer"] = [
+                float(torch.linalg.vector_norm(g16[leaf][i].float() - g32[leaf][i])
+                      / torch.linalg.vector_norm(g32[leaf][i])) for i in range(cfg.n_layers)]
+        del g16
         print(name, json.dumps(out[name]), flush=True)
+    by_layer = out["A attention_train"]["wq_col_by_layer"]
+    out["dump"] = dump_cross(cfg, params, batch, int(np.argmax(by_layer)), out_dir)
     return out
 
 
+def dump_cross(cfg, params, batch, layer: int, out_dir: Path) -> str:
+    """One decoder layer's cross attention at this state, in the bf16 step
+    and in the float32 step (the first clip; the attention is per clip): its
+    query, keys, values, output gradient and the inputs of its projections
+    (the ln_x output ``hn`` and the encoder's output), into
+    ``out_dir/whisper_cross_layer<layer>.npz`` (bf16 as its uint16 bits),
+    for ``tools/whisper_cross_backward.py`` to run both packages' chunked
+    backward on. The layer runs unchanged but for the hook; remat is off,
+    so the hooked output is the one the backward flows through."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    real = T._cross_attention
+    dump = {}
+    for dtype in ("bfloat16", "float32"):
+        calls, seen = [0], {}
+
+        def spy(p, hn, enc_out, c, seen=seen):
+            i, calls[0] = calls[0], calls[0] + 1
+            if i != layer:
+                return real(p, hn, enc_out, c)
+            B, S, _ = hn.shape
+            xk, xv = L.attn_proj_kv(p, enc_out, c)
+            q = T._train_cross_query(p, hn, c)
+            att = L.attention_train(q, xk, xv, causal=False)
+            att.register_hook(lambda g: seen.__setitem__("dO", g.detach()[:1].clone()))
+            seen.update({n: t.detach()[:1].clone() for n, t in
+                         (("q", q), ("k", xk), ("v", xv), ("hn", hn), ("enc", enc_out))})
+            return att.reshape(B, S, c.n_heads * c.hd) @ p["wo_row"]
+
+        T._cross_attention = spy
+        try:
+            cs.step_grads(dataclasses.replace(cfg, dtype=dtype, remat=False), params, batch)
+        finally:
+            T._cross_attention = real
+        for n, t in seen.items():
+            a = t.cpu()
+            dump[f"{n}_{dtype}"] = (a.view(torch.int16).numpy().view(np.uint16)
+                                    if a.dtype == torch.bfloat16 else a.numpy())
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"whisper_cross_layer{layer}.npz"
+    np.savez(path, layer=np.int32(layer), **dump)
+    print(f"dumped layer {layer}'s cross attention to {path} "
+          f"({path.stat().st_size / 2**20:.1f} MiB)", flush=True)
+    return str(path)
+
+
 def main() -> int:
-    if not torch.cuda.is_available() or len(sys.argv) != 2 or sys.argv[1] not in ("time",
-                                                                                  "whisper"):
+    args = sys.argv[1:]
+    usage = args == ["time"] or (len(args) == 2 and args[0] == "whisper")
+    if not torch.cuda.is_available() or not usage:
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    result = probe_time(dev) if sys.argv[1] == "time" else probe_whisper(dev)
+    result = probe_time(dev) if args[0] == "time" else probe_whisper(dev, Path(args[1]))
     print(f"{sys.argv[1]} [{smi}]: {json.dumps(result)}", flush=True)
     return 0
 
