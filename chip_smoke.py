@@ -299,7 +299,9 @@ In order it
    output detached from the graph in every layer and in each one layer
    alone (planted faults); the step's time (median, p90), tokens a second, model FLOPs
    over the step against 989 TFLOP/s, the card's idle share in one
-   profiled step, the peak memory, the loader's time a step and the
+   profiled step at a quarter of the sequence (``idle_share_step_quarter_seq``,
+   not comparable with a whole step's ``idle_share_step``), the peak
+   memory, the loader's time a step and the
    checkpoint's snapshot and write times and bytes; then step 3's
    checkpoint loaded with ``load_checkpoint`` and served through
    ``ServeEngine`` (16 loader prompts of 512 tokens, 32 new tokens):
@@ -343,11 +345,25 @@ In order it
    parameter tree, bitwise the paths without a mesh; then qwen2-0.5b at
    full width, 2 steps of 16 x 4,096 through ``make_train_step(model,
    mesh)`` interleaved with 2 steps without a mesh from a copy of the same
-   state: the losses and every parameter and moment bitwise; the
-   ``sharded [...]:`` JSON line of the times; the counts, zeroed before,
-   must show ``featurize``, ``tree_gemm``, ``gather_join`` and
+   state: the losses and every parameter and moment bitwise; then the
+   training phase's step 1 checkpoint restored with ``restore_onto_mesh``
+   onto DTensor parameters placed by ``shardings_for`` and resumed through
+   ``make_train_step(model, mesh)``, its 2 steps timed and bitwise the
+   training phase's resumed run (losses, parameters, moments), and one
+   more step on that state counted by ``FlopCounterMode`` for the dry
+   run; the ``sharded [...]:`` JSON line of the times; the counts, zeroed
+   before, must show ``featurize``, ``tree_gemm``, ``gather_join`` and
    ``segment_agg`` launched;
-20. prints the run's total time, the kernel table as one JSON line
+20. the dry-run phase (``dryrun_phase``): the attention operators' host
+   cost a call through ``torch.ops``, through ``kernels.ops`` and straight
+   to the wrappers; a child started after LM serving (niced, one thread)
+   dry-runs qwen2-0.5b's 16 x 4,096 step and a granite-3-8b 16 x 512
+   prefill on a one-rank fake CUDA mesh: their FLOPs (by operator) equal
+   the counted real step's and the counted real prefill's
+   (``flash_attention``'s formula among them), the step's argument bytes
+   the real ones, its temporaries printed beside the real step's peak
+   growth; the ``dryrun [...]:`` JSON line;
+21. prints the run's total time, the kernel table as one JSON line
    (``launches``: the sum over every counted run of the main path: the
    hospital query and dashboard plan, the transforms, capture, served,
    strategy, verify and lifecycle phases (its children's launches
@@ -363,6 +379,7 @@ when the rest of the repository is not beside it.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import itertools
@@ -519,6 +536,13 @@ ENC_ZERO_GRAD_TOL = 1e-4
 # training steps through make_train_step with and
 # without a mesh (TRAIN_BATCH x TRAIN_SEQ, interleaved)
 SHARD_REQUESTS, SHARD_TRAIN_STEPS = 7, 2
+# The dry run: qwen2-0.5b's TRAIN_BATCH x TRAIN_SEQ step (the sharded phase's
+# counted one, on DTensor parameters) and one granite-3-8b prefill of DRY_PREFILL_BATCH x
+# DRY_PREFILL_SEQ (after LM serving) dry-run in a child process on a
+# one-rank fake mesh and held against the real runs' counts
+DRY_PREFILL_BATCH, DRY_PREFILL_SEQ = 16, 512
+DRY_CHILD_TIMEOUT_S = 600
+DRY_OP_CALLS, DRY_OP_REPS = 200, 9  # the operators' host cost: calls a block, blocks
 
 # kernel -> (wrapper module, its source, the Pallas function it replaces)
 KERNELS = {
@@ -3954,16 +3978,22 @@ def serve_trained(model, params: dict, dev, smi: str, rows: dict) -> dict[str, i
     return counts
 
 
-def training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
+def training_phase(dev, smi: str, rows: dict, keep: dict | None = None) -> dict[str, int]:
     """qwen2-0.5b trained at full width through ``train_loop``, resumed from
     its first checkpoint, held in bf16 against float32, then served from its
     last checkpoint. Returns the serving run's launches (training reaches no
-    kernel: the loss path attends through ``attention_train``)."""
+    kernel: the loss path attends through ``attention_train``). With
+    ``keep``, the first checkpoint is moved to a directory of its own and
+    ``keep`` gets it (``ckpt``), the resumed steps' first (``start``), their
+    losses, the state they end in (``state``: parameters and optimizer, on
+    the host) and the microbatch count, for the sharded phase (which
+    removes it)."""
     from repro_torch.checkpoint import load_checkpoint, restore_onto_device
     from repro_torch.configs import get_config
     from repro_torch.data.loader import TokenLoader
     from repro_torch.launch.train import train_loop
     from repro_torch.models import build_model, zoo
+    from repro_torch.train.optimizer import tree_map
     from repro_torch.train.step import make_train_step
 
     cfg = get_config(TRAIN_ARCH)
@@ -4024,17 +4054,34 @@ def training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
         check(len(again) == TRAIN_STEPS - TRAIN_CKPT_EVERY and diff <= TRAIN_RESUME_TOL,
               f"the resumed losses differ by {diff!r}")
         params, opt = second["params"], second["opt_state"]
+        if keep is not None:
+            kept = tempfile.mkdtemp(prefix="chip_smoke_kept_")
+            name = f"step_{first_ckpt:08d}"
+            os.rename(os.path.join(ckpt, name), os.path.join(kept, name))
+            keep.update(ckpt=kept, start=TRAIN_CKPT_EVERY, losses=again, accum=accum,
+                        state=tree_map(lambda x: x.to("cpu", copy=True),
+                                       {"params": params, "opt": opt}))
         lap("the resumed run")
         precision = precision_check(cfg, params, dev, smi)
         lap("the bf16 check")
-        # one more step profiled: the card's busy time against the median step
+        # one more step profiled, at a quarter of the sequence (as the
+        # recurrent steps): the card's busy time against the same step unprofiled
         step_fn = make_train_step(build_model(cfg), lr=TRAIN_LR, accum_steps=accum)
-        np_batch = TokenLoader(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        P = TRAIN_SEQ // REC_PROFILE_FRACTION
+        np_batch = TokenLoader(global_batch=TRAIN_BATCH, seq_len=P,
                                vocab=cfg.vocab_size, seed=TRAIN_SEED).batch(TRAIN_STEPS)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
         median_s = float(np.median(step_s[1:]))
-        idle = profile_card(lambda: float(step_fn(params, opt, batch)[2]["loss"]), 1,
-                            1e3 * median_s, f"{TRAIN_ARCH} training step")
+
+        def run() -> float:
+            return float(step_fn(params, opt, batch)[2]["loss"])
+
+        run()  # a warm-up at the profiled length, then timed unprofiled
+        t0 = time.perf_counter()
+        run()
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+        idle = profile_card(run, 1, profiled_ms, f"{TRAIN_ARCH} training step, "
+                            f"{TRAIN_BATCH} x {P}")
         del params, opt, second, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -4047,7 +4094,8 @@ def training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
             "step_s_p90": float(np.percentile(step_s[1:], 90)),
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
             "model_flops_per_step": flops, "bound_step_s": flops / BF16_FLOPS_PER_S,
-            "mfu_bf16": flops / BF16_FLOPS_PER_S / median_s, "idle_share_step": idle,
+            "mfu_bf16": flops / BF16_FLOPS_PER_S / median_s,
+            "idle_share_step_quarter_seq": idle, "profiled_seq": P, "profiled_step_ms": profiled_ms,
             "peak_gib": peak / 2**30, "loader_s_median": float(np.median(load_s)),
             "checkpoint_snapshot_s": saved["snapshot_s"], "checkpoint_write_s": saved["write_s"],
             "checkpoint_bytes": saved["bytes"], "first_run_wall_s": wall,
@@ -4887,7 +4935,8 @@ def encdec_training_phase(dev, smi: str, rows: dict) -> dict[str, int]:
     return counts
 
 
-def sharded_phase(case, t: float, tables, dev, smi: str) -> dict[str, int]:
+def sharded_phase(case, t: float, tables, dev, smi: str, kept: dict, real: dict
+                  ) -> dict[str, int]:
     """The distributed pieces on NCCL at one rank (NCCL refuses two ranks on
     one card; world sizes above 1 are held on the CPU by
     ``tests/test_torch_distributed.py``): the hospital query under ``dnn``
@@ -4899,16 +4948,30 @@ def sharded_phase(case, t: float, tables, dev, smi: str) -> dict[str, int]:
     width trained ``SHARD_TRAIN_STEPS`` steps through ``make_train_step(model,
     mesh)``, bitwise the same steps without one. Times sharded and
     unsharded side by side: at one rank they are the cost of the slicing
-    and the collectives, not a speedup. Returns the phase's launches."""
+    and the collectives, not a speedup. Then the training phase's first
+    checkpoint (``kept``) restored with ``restore_onto_mesh`` onto DTensor
+    parameters placed by ``shardings_for`` (the dry run's layout) and
+    resumed through ``make_train_step(model, mesh)``: its losses and every
+    parameter and moment bitwise the training phase's resumed run (plain
+    steps from the same checkpoint), its steps timed; and one more step on
+    that state counted by ``FlopCounterMode`` (its FLOPs, argument bytes
+    and peak growth put in ``real["train"]``; apart from the steps held
+    bitwise, as the mode changes the backward's bits on the card). Returns
+    the phase's launches."""
     import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.checkpoint import load_checkpoint, restore_onto_mesh
     from repro_torch.configs import get_config
     from repro_torch.core.optimizer import OptimizerOptions, RavenOptimizer
     from repro_torch.data.loader import TokenLoader
+    from repro_torch.distributed.straggler import StragglerMonitor
     from repro_torch.distributed import compressed_gradient_update, ef_init, hierarchical_psum
+    from repro_torch.launch.dryrun import local_bytes
     from repro_torch.launch.mesh import make_local_mesh, make_mesh
     from repro_torch.launch.train import choose_accum_steps
     from repro_torch.models import build_model
+    from repro_torch.models.base import shardings_for
     from repro_torch.relational.engine import (
         Aggregate,
         compile_plan,
@@ -5017,12 +5080,18 @@ def sharded_phase(case, t: float, tables, dev, smi: str) -> dict[str, int]:
         accum = choose_accum_steps(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
         steps = {"unsharded": make_train_step(model, lr=TRAIN_LR, accum_steps=accum),
                  "sharded": make_train_step(model, mesh, lr=TRAIN_LR, accum_steps=accum)}
+        monitor = StragglerMonitor(n_hosts=4)  # train_loop's loader and shards
         loader = TokenLoader(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                             vocab=cfg.vocab_size, seed=TRAIN_SEED)
+                             vocab=cfg.vocab_size, seed=TRAIN_SEED, n_shards=4, monitor=monitor)
+        shards = sorted(x for xs in monitor.plan_shards(loader.n_shards).values() for x in xs)
+
+        def batch_at(i: int) -> dict:
+            return {k: torch.from_numpy(v).to(dev) for k, v in loader.batch(i, shards).items()}
+
         losses = {k: [] for k in steps}
-        step_s = {k: [] for k in steps}
+        step_s = {k: [] for k in (*steps, "dtensor")}
         for i in range(SHARD_TRAIN_STEPS):
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in loader.batch(i).items()}
+            batch = batch_at(i)
             for name, step in steps.items():
                 t0 = time.perf_counter()
                 p, o, metrics = step(*states[name], batch)
@@ -5033,18 +5102,250 @@ def sharded_phase(case, t: float, tables, dev, smi: str) -> dict[str, int]:
         for a, b in zip(tree_leaves(dict(enumerate(states["sharded"]))),
                         tree_leaves(dict(enumerate(states["unsharded"])))):
             check(torch.equal(a, b), "the meshed steps' state is not the unmeshed steps'")
-        stats.update(train_accum_steps=accum, train_losses=losses["sharded"],
-                     train_step_s=step_s)
         print(f"sharded phase: {TRAIN_ARCH} {SHARD_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
               f"{TRAIN_SEQ} through make_train_step(model, mesh): losses and every parameter "
               "and moment bitwise the steps without a mesh", flush=True)
+        del states, params, opt, p, o, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the training phase's first checkpoint restored onto the mesh as
+        # DTensors placed by shardings_for (the dry run's layout) and resumed
+        # through make_train_step(model, mesh): bitwise the training phase's
+        # resumed run, its plain steps from the same checkpoint
+        t0 = time.perf_counter()
+        step, tree, _ = load_checkpoint(kept["ckpt"])
+        check(step == kept["start"] - 1, (step, kept["start"]))
+        state = restore_onto_mesh(tree, shardings_for(tree, mesh))
+        del tree
+        stats["restore_s"] = time.perf_counter() - t0
+        p, o = state["params"], state["opt"]
+        del state
+        check(all(hasattr(x, "to_local") for x in tree_leaves(p)), "a restored leaf is plain")
+        resume = make_train_step(model, mesh, lr=TRAIN_LR, accum_steps=kept["accum"])
+        resumed = []
+        for i in range(kept["start"], TRAIN_STEPS):
+            batch = batch_at(i)
+            t0 = time.perf_counter()
+            p, o, metrics = resume(p, o, batch)
+            resumed.append(float(metrics["loss"]))
+            step_s["dtensor"].append(time.perf_counter() - t0)
+        check(resumed == kept["losses"], f"resumed {resumed} against {kept['losses']}")
+        want = kept.pop("state")
+        for a, b in zip(tree_leaves({"params": p, "opt": o}), tree_leaves(want)):
+            a = a.full_tensor() if hasattr(a, "full_tensor") else a
+            check(torch.equal(a.cpu(), b), "the resumed DTensor steps' state is not the "
+                  "training phase's resumed state")
+        del want
+        stats.update(train_accum_steps=accum, train_losses=losses["sharded"],
+                     train_step_s=step_s, resumed_losses=resumed)
+        print(f"sharded phase: step {step}'s checkpoint restored with restore_onto_mesh in "
+              f"{stats['restore_s']:.1f} s onto DTensor parameters placed by shardings_for "
+              f"and resumed through make_train_step(model, mesh): losses {resumed} and every "
+              "parameter and moment bitwise the training phase's resumed run", flush=True)
+        # the dry run's cell, one more step on that state: its arguments,
+        # FLOPs and peak. Counted apart from the steps held bitwise, since on
+        # the card FlopCounterMode changes the backward's bits (the plain
+        # step's too)
+        batch = batch_at(TRAIN_STEPS)
+        real["train"] = {"accum_steps": kept["accum"],
+                         "arg_bytes": local_bytes({"p": p, "o": o, "b": batch})}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            metrics = resume(p, o, batch)[2]
+            check(bool(torch.isfinite(metrics["loss"])), f"the counted step's loss {metrics}")
+        real["train"].update(
+            flops=fc.get_total_flops(),
+            by_op={str(k): v for k, v in fc.get_flop_counts()["Global"].items()},
+            peak_growth_bytes=torch.cuda.max_memory_allocated() - before)
         print(f"sharded [{smi}]:", json.dumps(stats), flush=True)
-        del states, params, opt, p, o
+        del p, o, batch, metrics
     finally:
         dist.destroy_process_group()
+        shutil.rmtree(kept["ckpt"], ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The dry run: the cost analysis held against real runs
+# ---------------------------------------------------------------------------
+
+
+def dryrun_child(argv: list[str]) -> int:
+    """``chip_smoke.py --dryrun-child JSON``: two cells dry-run on a
+    one-rank "fake" group's CUDA mesh (a process of its own: the default
+    group is the fake one), their records written to ``JSON["out"]``:
+    qwen2-0.5b's TRAIN_BATCH x TRAIN_SEQ train step (its config's
+    microbatches) and granite-3-8b's DRY_PREFILL_BATCH x DRY_PREFILL_SEQ
+    prefill."""
+    os.nice(10)
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models.base import ShapeSpec
+
+    out_path = json.loads(argv[0])["out"]
+    out = {}
+    for key, arch, sp in (
+            ("train", TRAIN_ARCH, ShapeSpec(f"train_{TRAIN_SEQ}", "train", TRAIN_SEQ,
+                                            TRAIN_BATCH)),
+            ("prefill", LM_ARCH, ShapeSpec(f"prefill_{DRY_PREFILL_SEQ}", "prefill",
+                                           DRY_PREFILL_SEQ, DRY_PREFILL_BATCH))):
+        t0 = time.perf_counter()
+        out[key] = trace_cell(arch, sp.name, sp=sp, mesh_shape=(1, 1))
+        out[key]["wall_s"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_dryrun_child() -> tuple[subprocess.Popen, str, float]:
+    """The dry-run child started (it works on the host while the later
+    phases use the card): (the process, its output file, its start). It
+    runs at a lower priority on one thread, so that the phases it overlaps
+    keep the host's cores, and is killed if this process exits first."""
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dry_"), "dry.json")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+                             json.dumps({"out": out})], cwd=str(ROOT), env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def counted_prefill(model, params, dev) -> dict:
+    """granite-3-8b's DRY_PREFILL_BATCH x DRY_PREFILL_SEQ prefill on the
+    kernels, counted by ``FlopCounterMode`` (the flash kernel's formula
+    among the operators) for the dry run's to equal: its FLOPs, by
+    operator, and its launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = model.cfg
+    rng = np.random.default_rng(LM_SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DRY_PREFILL_BATCH, DRY_PREFILL_SEQ)).astype(np.int32)).to(dev)}
+    zero_counts()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        logits, _ = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()), "prefill logits")
+    counts = read_counts()
+    check(counts["flash_attention"] == cfg.n_layers, f"prefill launches {counts}")
+    return {"flops": fc.get_total_flops(), "counts": counts,
+            "by_op": {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}}
+
+
+def op_host_cost(dev) -> dict:
+    """The attention kernels' per-call host cost three ways: through their
+    registered operators (``torch.ops.repro_torch.*``, the route of
+    DTensors, fake tensors and dispatch modes), through ``kernels.ops``
+    on plain tensors (the main path's eager route, which calls the
+    wrappers without the operator) and straight to the ctypes wrappers
+    (``kernels.attention``), on inputs so small that the card waits on the
+    host: DRY_OP_REPS blocks of DRY_OP_CALLS calls each way in turns, each
+    block to the card's last launch; the median microseconds a call."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(PROBE_SEED)
+    q = torch.randn(1, 16, 8, 64, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 16, 2, 64, generator=g, device=dev).to(torch.bfloat16)
+    qd, lengths = q[:, 0].contiguous(), torch.full((1,), 16, dtype=torch.int32, device=dev)
+    scale = 1.0 / 8.0
+    calls = {
+        "flash_attention": {
+            "op": lambda: torch.ops.repro_torch.flash_attention(q, k, k, True, scale, 0),
+            "kernels.ops": lambda: ops.flash_attention_op(q, k, k),
+            "direct": lambda: A.flash_attention(q, k, k, causal=True, scale=scale)},
+        "decode_attention": {
+            "op": lambda: torch.ops.repro_torch.decode_attention(qd, k, k, lengths, scale),
+            "kernels.ops": lambda: ops.decode_attention_op(qd, k, k, lengths),
+            "direct": lambda: A.decode_attention(qd, k, k, lengths, scale=scale)},
+    }
+    out = {}
+    for name, ways in calls.items():
+        want = ways["direct"]()
+        for way, call in ways.items():
+            check(torch.equal(call(), want), f"{name}: {way} and the wrapper differ")
+        us = {way: [] for way in ways}
+        for _ in range(DRY_OP_REPS):
+            for way, call in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DRY_OP_CALLS):
+                    call()
+                torch.cuda.synchronize()
+                us[way].append(1e6 * (time.perf_counter() - t0) / DRY_OP_CALLS)
+        out[name] = {way: float(np.median(v)) for way, v in us.items()}
+    return out
+
+
+def dryrun_phase(dev, smi: str, child, real: dict) -> None:
+    """The dry run held against real runs at one rank (the placements and
+    layouts over more ranks are held on the CPU by
+    ``tests/test_torch_dryrun.py``): the child's dry run of qwen2-0.5b's
+    step on a one-rank fake CUDA mesh against the sharded phase's counted
+    step on DTensor parameters (``real["train"]``: its ``exec_flops`` and
+    FLOPs by operator equal a ``FlopCounterMode`` count of the real step,
+    its ``arg_bytes`` the real parameter, optimizer and batch bytes, its
+    peak printed beside the real step's ``max_memory_allocated`` growth,
+    the gap stated), and its dry run of granite-3-8b's prefill against
+    :func:`counted_prefill`'s (equal FLOPs, ``flash_attention``'s formula
+    among them); first the attention operators' host cost
+    (:func:`op_host_cost`, whose launches time the operators and are not
+    the main path's)."""
+    from repro_torch.configs import get_config
+
+    proc, out_path, child_t0 = child
+    t_phase = time.perf_counter()
+    host_us = op_host_cost(dev)
+    print(f"dry-run phase: the attention operators' host cost, microseconds a call "
+          f"through torch.ops, through kernels.ops on plain tensors and straight to the "
+          f"wrappers: {host_us}", flush=True)
+    proc.wait(timeout=max(1.0, DRY_CHILD_TIMEOUT_S - (time.perf_counter() - child_t0)))
+    check(proc.returncode == 0, f"the dry-run child exited {proc.returncode}")
+    with open(out_path) as f:
+        dry = json.load(f)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    train, prefill = dry["train"], dry["prefill"]
+    rt, rp = real["train"], real["prefill"]
+    check(train["status"] == prefill["status"] == "ok", (train["status"], prefill["status"]))
+    check(train["exec_flops"] == rt["flops"],
+          f"dry-run train FLOPs {train['exec_flops']!r} against counted {rt['flops']!r}")
+    check(train["exec_flops_by_op"] == rt["by_op"], (train["exec_flops_by_op"], rt["by_op"]))
+    check(train["arg_bytes"] == rt["arg_bytes"], (train["arg_bytes"], rt["arg_bytes"]))
+    check(prefill["exec_flops"] == rp["flops"],
+          f"dry-run prefill FLOPs {prefill['exec_flops']!r} against counted {rp['flops']!r}")
+    check(prefill["exec_flops_by_op"] == rp["by_op"], (prefill["exec_flops_by_op"], rp["by_op"]))
+    gcfg = get_config(LM_ARCH)
+    flash = prefill["exec_flops_by_op"].get("repro_torch.flash_attention", 0.0)
+    want = gcfg.n_layers * 4 * DRY_PREFILL_BATCH * gcfg.n_heads * gcfg.hd * (
+        DRY_PREFILL_SEQ * (DRY_PREFILL_SEQ + 1) // 2)
+    check(flash == want, f"flash_attention's FLOPs {flash!r} against {want!r}")
+    gap = rt["peak_growth_bytes"] - train["temp_bytes"]
+    stats = {"card": smi, "op_host_us": host_us,
+             "dry_train": {k: train[k] for k in (
+                 "exec_flops", "arg_bytes", "temp_bytes", "out_bytes", "alias_bytes",
+                 "exec_bytes", "trace_s", "wall_s")},
+             "real_train": {k: rt[k] for k in ("flops", "arg_bytes", "peak_growth_bytes",
+                                               "accum_steps")},
+             "dry_prefill": {k: prefill[k] for k in (
+                 "exec_flops", "exec_flops_by_op", "arg_bytes", "temp_bytes", "exec_bytes",
+                 "trace_s", "wall_s")},
+             "real_prefill_flops": rp["flops"], "temp_gap_bytes": gap,
+             "child_wall_s": time.perf_counter() - child_t0,
+             "phase_s": time.perf_counter() - t_phase}
+    print(f"dry-run phase: {TRAIN_ARCH}'s step dry-run on a one-rank fake mesh: "
+          f"{train['exec_flops']:.6e} FLOPs, the counted real step's; arg "
+          f"{train['arg_bytes']} bytes, the real ones; temp {train['temp_bytes']} bytes "
+          f"against the real step's peak growth {rt['peak_growth_bytes']} (gap {gap}); "
+          f"{LM_ARCH}'s {DRY_PREFILL_BATCH} x {DRY_PREFILL_SEQ} prefill "
+          f"{prefill['exec_flops']:.6e} FLOPs, the counted real one's, flash_attention "
+          f"{flash:.6e} of them", flush=True)
+    print(f"dryrun [{smi}]:", json.dumps(stats), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5174,6 +5475,12 @@ def main() -> int:
                               (eager, eager_outputs, eager_wall), LM_ARCH)
     for name in ATTENTION:
         counts[name] = lm_counts[name]
+    # one prefill counted for the dry run to equal, and the dry run started:
+    # it works on the host while the later phases use the card
+    real = {"prefill": counted_prefill(model, params, dev)}
+    for name in ATTENTION:
+        counts[name] += real["prefill"]["counts"][name]
+    dry_child = start_dryrun_child()
     mark("LM serving")
     session.close()
 
@@ -5210,7 +5517,8 @@ def main() -> int:
     for name in KERNELS:
         counts[name] += families[name]
     mark("families phase")
-    trained = training_phase(dev, smi, rows)
+    kept: dict = {}
+    trained = training_phase(dev, smi, rows, keep=kept)
     for name in KERNELS:
         counts[name] += trained[name]
     mark("training phase")
@@ -5222,10 +5530,12 @@ def main() -> int:
     for name in KERNELS:
         counts[name] += trained[name]
     mark("encdec training phase")
-    sharded = sharded_phase(case, thresholds[1], tables, dev, smi)
+    sharded = sharded_phase(case, thresholds[1], tables, dev, smi, kept, real)
     for name in KERNELS:
         counts[name] += sharded[name]
     mark("sharded phase")
+    dryrun_phase(dev, smi, dry_child, real)
+    mark("dry-run phase")
 
     table = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -5250,4 +5560,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lifecycle-child"]:
         sys.exit(lifecycle_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        sys.exit(dryrun_child(sys.argv[2:]))
     sys.exit(main())

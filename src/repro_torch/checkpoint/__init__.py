@@ -2,6 +2,7 @@ from repro_torch.checkpoint.store import (
     CheckpointManager,
     load_checkpoint,
     restore_onto_device,
+    restore_onto_mesh,
     save_checkpoint,
 )
 
@@ -10,4 +11,5 @@ __all__ = [
     "save_checkpoint",
     "load_checkpoint",
     "restore_onto_device",
+    "restore_onto_mesh",
 ]

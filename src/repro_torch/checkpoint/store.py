@@ -12,7 +12,9 @@ checkpoints: one directory per step, ``step_<n:08d>``, holding
 
 numpy has no bfloat16: a bf16 leaf is stored as its uint16 bits under a
 ``BF16::``-prefixed key, and :func:`restore_onto_device` views uint16 back
-as bf16 (unless ``dtypes`` names another type). Writes are atomic (tmp dir +
+as bf16 (unless ``dtypes`` names another type); :func:`restore_onto_mesh`
+lays the tree out as DTensors on a mesh, each rank its own shard. Writes
+are atomic (tmp dir +
 rename), so a preemption mid-save never corrupts the latest complete step.
 ``CheckpointManager`` adds background saves, retention and draining.
 """
@@ -221,6 +223,49 @@ def restore_onto_device(np_tree: Any, device=None, dtypes: Optional[dict[str, st
         if arr.dtype == np.uint16 and (want_bf16 or dtypes is None):
             return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dev)
         return torch.from_numpy(arr).to(dev)
+
+    flat_out = {p: place(p) for p in flat_t}
+    return _unflatten(flat_out, _skeleton(np_tree))
+
+
+def restore_onto_mesh(np_tree: Any, shardings: Any, dtypes: Optional[dict[str, str]] = None
+                      ) -> Any:
+    """Elastic restore: the loaded global numpy tree as DTensors laid out by
+    ``shardings`` (a tree of :class:`~repro_torch.models.base.Sharding`,
+    from ``shardings_for``; its mesh may have another shape than the
+    writer's). Each rank slices its own shard from the global array and
+    wraps it (``DTensor.from_local``): no scatter, no collective. A leaf
+    without a sharding is a plain tensor on the mesh's device; a uint16
+    leaf is bf16 unless ``dtypes`` says otherwise, as in
+    :func:`restore_onto_device`."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.models.base import from_local
+
+    flat_t = _flatten(np_tree)
+    flat_s = _flatten(shardings)
+
+    def tensor(arr, path):
+        want_bf16 = dtypes and dtypes.get(path) == "bfloat16"
+        if arr.dtype == np.uint16 and (want_bf16 or dtypes is None):
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
+
+    def own(arr):
+        # a contiguous copy of its own; a 0-d leaf (a step count) stays 0-d,
+        # where np.ascontiguousarray would give it one dimension
+        return np.array(arr, order="C", copy=True)
+
+    def place(path):
+        arr = np.asarray(flat_t[path])
+        sh = flat_s.get(path)
+        if sh is None:
+            dev = next(iter(flat_s.values())).mesh.device_type if flat_s else "cpu"
+            return tensor(own(arr), path).to(dev)
+        shape, offset = compute_local_shape_and_global_offset(arr.shape, sh.mesh, sh.placements)
+        window = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+        local = tensor(own(arr[window] if arr.ndim else arr), path).to(sh.mesh.device_type)
+        return from_local(local, sh.mesh, sh.placements, arr.shape)
 
     flat_out = {p: place(p) for p in flat_t}
     return _unflatten(flat_out, _skeleton(np_tree))

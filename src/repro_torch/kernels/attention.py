@@ -16,6 +16,7 @@ import contextlib
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.device import refuse_in_capture
 from repro_torch.kernels import _build
@@ -126,8 +127,9 @@ def check_lengths(lengths: torch.Tensor, S: int, what: str = "decode_attention: 
     passed is marked with its version counter and not read again until it
     changes: a decode step hands the same lengths to every layer, and
     checks them once. A capture cannot read them: there the caller checks
-    (:func:`lengths_checked`), and the check raises otherwise."""
-    if getattr(_caller, "checked", False):
+    (:func:`lengths_checked`), and the check raises otherwise. A fake
+    tensor (the dry run's) has no values and is not checked."""
+    if getattr(_caller, "checked", False) or is_fake(lengths):
         return
     if getattr(lengths, "_raven_checked", None) == (lengths._version, S):
         return

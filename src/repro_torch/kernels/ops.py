@@ -6,6 +6,21 @@ version in :mod:`repro_torch.kernels.ref`. There is no fallback between the two:
 CUDA input whose kernel cannot build or launch raises, and an input on any
 other device raises. Callers pass natural shapes; the one padding the port
 keeps (the GEMM program's) is provably inert, see :func:`pad_gemm_program`.
+
+The two attention kernels are also PyTorch operators
+(``torch.ops.repro_torch.flash_attention`` and ``...decode_attention``),
+so that the dry run (:mod:`repro_torch.launch.dryrun`) can trace the card's
+path on fake tensors and DTensors. Each has its kernel for CUDA tensors and
+its plain version for CPU tensors, a fake implementation that gives the
+output's shape and dtype and is reached only under ``FakeTensorMode``, a
+FLOP formula for ``torch.utils.flop_counter`` and a DTensor sharding rule
+over batch and heads. A call goes through the operator where something
+must see it: a DTensor, a fake tensor, or any dispatch mode (the flop
+counter, the dry run's cost mode). Plain CUDA tensors with no mode active
+call the kernel's wrapper straight, which is what the operator's CUDA
+implementation calls, without the operator's dispatch (26–75 µs a call on
+the card's host). Either way a real CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -14,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.device import refuse_in_capture
 from repro_torch.kernels import ref as _ref
@@ -213,6 +229,127 @@ def _refuse_grad(op: str, *ts) -> None:
         )
 
 
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs flash attention computes: all of them, or
+    under the causal mask and window (query i at position i + Skv - Sq)
+    those it keeps."""
+    if not causal and window <= 0:
+        return Sq * Skv
+    off = Skv - Sq
+    total = 0
+    for i in range(Sq):
+        hi = min(Skv - 1, i + off) if causal else Skv - 1
+        lo = max(0, i + off - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _flash_attention_cuda(q, k, v, causal: bool, scale: float, window: int) -> torch.Tensor:
+    from repro_torch.kernels.attention import flash_attention
+
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, scale=scale, window=window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                     scale: float, window: int) -> torch.Tensor:
+    return _flash_attention_cuda(q, k, v, causal, scale, window)
+
+
+@_flash_attention.register_kernel("cpu")
+def _(q, k, v, causal, scale, window):
+    return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, window=window)
+
+
+@_flash_attention.register_fake
+def _(q, k, v, causal, scale, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale: float) -> torch.Tensor:
+    from repro_torch.kernels.attention import decode_attention
+
+    return decode_attention(q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+                            lengths.to(torch.int32).contiguous(), scale=scale)
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(), device_types="cuda")
+def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      lengths: torch.Tensor, scale: float) -> torch.Tensor:
+    return _decode_attention_cuda(q, k_cache, v_cache, lengths, scale)
+
+
+@_decode_attention.register_kernel("cpu")
+def _(q, k_cache, v_cache, lengths, scale):
+    return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+
+
+@_decode_attention.register_fake
+def _(q, k_cache, v_cache, lengths, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _register_counting_and_sharding() -> None:
+    """The FLOP formulas and the DTensor sharding rules of the two ops.
+    Flash attention: 4·D FLOPs a (query head, kept key) pair
+    (:func:`attention_pairs`: q·k and p·v); decode attention: 4·D a query
+    head and cache row, every row of the cache (the lengths are data, and a
+    formula sees shapes only). Sharding: all replicated; the batch (dim 0)
+    sharded alike on every input; or the heads (dim 2 of flash's q, k, v;
+    dim 1 of decode's q, 2 of its caches) sharded alike, which keeps each
+    query head with its KV head only where the KV heads divide the whole
+    mesh (whole groups a rank, however the mesh dims combine)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, causal, scale, window, *args, **kwargs) -> int:
+        B, Sq, H, D = q_shape
+        return 4 * B * H * D * attention_pairs(Sq, k_shape[1], causal, window)
+
+    @register_flop_formula(torch.ops.repro_torch.decode_attention)
+    def _(q_shape, k_shape, v_shape, lengths_shape, scale, *args, **kwargs) -> int:
+        B, H, D = q_shape
+        return 4 * B * H * D * k_shape[1]
+
+    def heads_divide(kv) -> bool:
+        return kv.shape[2] % kv.mesh.size() == 0
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, causal, scale, window):
+        tail = [None, None, None]
+        out = [([Replicate()], [Replicate()] * 3 + tail), ([Shard(0)], [Shard(0)] * 3 + tail)]
+        if heads_divide(k):
+            out.append(([Shard(2)], [Shard(2)] * 3 + tail))
+        return out
+
+    @register_sharding(torch.ops.repro_torch.decode_attention.default)
+    def _(q, k_cache, v_cache, lengths, scale):
+        out = [([Replicate()], [Replicate()] * 4 + [None]),
+               ([Shard(0)], [Shard(0)] * 4 + [None])]
+        if heads_divide(k_cache):
+            out.append(([Shard(1)], [Shard(1), Shard(2), Shard(2), Replicate(), None]))
+        return out
+
+
+_register_counting_and_sharding()
+
+
+def _through_op(*ts: torch.Tensor) -> bool:
+    """Whether a call goes through the registered operator: a DTensor (its
+    sharding rule), a fake tensor (its fake implementation, under the dry
+    run's ``FakeTensorMode``), or any tensor under a dispatch mode (which
+    must see the operator, as ``FlopCounterMode`` its formula). Plain
+    tensors with no mode active go to the kernel's wrapper (CUDA) or the
+    plain version (CPU) directly."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    return (_get_current_dispatch_mode() is not None
+            or any(type(t) is not torch.Tensor or is_fake(t) for t in ts))
+
+
 def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = None,
                        window: int = 0):
     """q:(B,Sq,H,D); k,v:(B,Skv,KH,D), H % KH == 0 → (B,Sq,H,D) in q's
@@ -223,11 +360,11 @@ def flash_attention_op(q, k, v, *, causal: bool = True, scale: float | None = No
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} must be >= 0 (0: none)")
+    if _through_op(q, k, v):
+        return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), float(scale),
+                                                     int(window))
     if _route(q, "flash_attention"):
-        from repro_torch.kernels.attention import flash_attention
-
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, scale=scale, window=window)
+        return _flash_attention_cuda(q, k, v, bool(causal), float(scale), int(window))
     return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, window=window)
 
 
@@ -237,11 +374,9 @@ def decode_attention_op(q, k_cache, v_cache, lengths, *, scale: float | None = N
     inputs that require grad (:func:`_refuse_grad`)."""
     _refuse_grad("decode_attention", q, k_cache, v_cache)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if _through_op(q, k_cache, v_cache, lengths):
+        return torch.ops.repro_torch.decode_attention(q, k_cache, v_cache, lengths,
+                                                      float(scale))
     if _route(q, "decode_attention"):
-        from repro_torch.kernels.attention import decode_attention
-
-        return decode_attention(
-            q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
-            lengths.to(torch.int32).contiguous(), scale=scale,
-        )
+        return _decode_attention_cuda(q, k_cache, v_cache, lengths, float(scale))
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)

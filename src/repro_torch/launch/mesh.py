@@ -10,7 +10,9 @@ The caller initializes the group (``torch.distributed.init_process_group``
 with its address or store, world size and rank): nothing here reads a
 cluster's environment. The backend follows from the device: NCCL on the
 card, gloo on the CPU (:func:`backend_for`); a mesh refuses a group whose
-backend does not serve its device rather than run on another one.
+backend does not serve its device rather than run on another one; the
+dry run's ``"fake"`` group (:mod:`repro_torch.launch.dryrun`), whose
+collectives move nothing, serves either.
 
 Functions, not module-level constants, so importing this module touches no
 process group.
@@ -38,7 +40,7 @@ def _world(device) -> int:
             f"no process group: call torch.distributed.init_process_group("
             f"{backend_for(device)!r}, ...) with this rank and the world size first")
     backend = str(dist.get_backend())
-    if backend_for(device) not in backend:
+    if backend_for(device) not in backend and backend != "fake":  # the dry run's group
         raise ValueError(f"a {resolve_device(device).type} mesh needs the "
                          f"{backend_for(device)} backend; the process group runs {backend}")
     return dist.get_world_size()

@@ -3,15 +3,27 @@
 Parameters are nested dicts of tensors with *stacked* per-layer leaves (a
 leading L dimension), the reference package's layout; the port runs a layer
 stack as a Python loop over views ``w[l]`` of those leaves. The meshes are
-:mod:`repro_torch.launch.mesh`'s; the reference's sharding rules for the
-parameters (``fsdp_axes``, ``leaf_spec``, ``shardings_for``) come with the
-next slice (ROADMAP Queue 1 item 10).
+:mod:`repro_torch.launch.mesh`'s.
 :func:`active_param_count` gives a step's model FLOPs (6 · active
 parameters · tokens).
+
+The sharding rules are the reference's: TP over ``model`` (column-parallel
+QKV/up, row-parallel O/down, vocab-sharded embeddings), ZeRO-3/FSDP over
+``data`` (and ``pod`` when multi-pod). A rule is written as the reference's
+``PartitionSpec``, a tuple of one entry a tensor dim (a mesh axis name, a
+tuple of them, or None), and becomes DTensor placements
+(:class:`Sharding`): an entry naming axis ``a`` on tensor dim ``i`` is
+``Shard(i)`` on mesh dim ``a``; a tuple ``("pod", "data")`` puts
+``Shard(i)`` on both, and DTensor shards over mesh dims left to right,
+which is JAX's major-to-minor order.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Any
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -157,3 +169,144 @@ def active_param_count(cfg: ArchConfig) -> int:
         moe_active += 3 * D * cfg.d_ff
     total = 2 * cfg.vocab_size * D + L * (attn + moe_active + 2 * D)
     return int(total)
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshAxes:
+    data: Any = "data"  # str or tuple (("pod","data") when multi-pod)
+    model: str = "model"
+
+
+def fsdp_axes(mesh) -> MeshAxes:
+    if "pod" in mesh.mesh_dim_names:
+        return MeshAxes(data=("pod", "data"), model="model")
+    return MeshAxes(data="data", model="model")
+
+
+# Param-leaf sharding is keyed on the leaf's path suffix. Conventions:
+#   *_col : (in, out) column-parallel  -> P(data, model)
+#   *_row : (in, out) row-parallel     -> P(model, data)
+#   embed : (vocab, d)                 -> P(model, data)
+#   *_exp : (E, in, out) expert        -> P(model, data, None)
+#   bias_col : (out,) column bias      -> P(model)
+#   norm / scalars                     -> replicated
+def leaf_spec(path: str, ndim: int, ax: MeshAxes, stacked: bool) -> tuple:
+    """The leaf's ``PartitionSpec`` entries (a stacked leaf's layer dim
+    first, unsharded)."""
+    pre = (None,) if stacked else ()
+    if path.endswith("out_embed"):  # (D, V): vocab over model, D replicated
+        return (None, ax.model)
+    if path.endswith("embed"):  # (V, D): vocab over model (the lookup needs D replicated)
+        return (ax.model, None)
+    if path.endswith("_col"):
+        if ndim - len(pre) == 1:  # column bias
+            return (*pre, ax.model)
+        return (*pre, ax.data, ax.model)
+    if path.endswith("_row"):
+        return (*pre, ax.model, ax.data)
+    if path.endswith("_exp"):  # (E, in, out)
+        return (*pre, ax.model, ax.data, None)
+    if path.endswith("_dp"):  # shard first non-stack dim over data only
+        return (*pre, ax.data)
+    return pre
+
+
+def tree_paths(tree: dict, prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(tree_paths(v, p))
+        else:
+            out[p] = v
+    return out
+
+
+def _axis_size(mesh, ax) -> int:
+    if ax is None:
+        return 1
+    names = mesh.mesh_dim_names
+    if isinstance(ax, tuple):
+        return math.prod(mesh.shape[names.index(a)] for a in ax)
+    return int(mesh.shape[names.index(ax)])
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A ``PartitionSpec`` on a ``DeviceMesh``: the reference's
+    ``NamedSharding``. ``spec`` has one entry a tensor dim."""
+
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor placements, one a mesh dim: ``Shard(i)`` where spec
+        entry ``i`` names the dim's axis, else ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = []
+        for name in self.mesh.mesh_dim_names:
+            dims = [i for i, a in enumerate(self.spec)
+                    if a == name or (isinstance(a, tuple) and name in a)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """Each rank's local shape (the rules keep every sharded dim
+        divisible)."""
+        return tuple(int(n) // _axis_size(self.mesh, a) for n, a in
+                     zip(shape, tuple(self.spec) + (None,) * (len(shape) - len(self.spec))))
+
+
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= int(d)
+    return tuple(reversed(out))
+
+
+def from_local(local: torch.Tensor, mesh, placements, shape):
+    """``local`` as this rank's shard of a DTensor of global ``shape`` laid
+    out by ``placements`` on ``mesh``: no collective, no check."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=contiguous_stride(shape))
+
+
+def shardings_for(params: dict, mesh,
+                  stacked_prefixes: tuple[str, ...] = ("layers", "encoder_layers")) -> dict:
+    """Mirror the param tree with :class:`Sharding` objects per the leaf rules.
+
+    Dims that don't divide their assigned mesh axis fall back to replicated
+    (the reference's jit in_shardings require exact divisibility)."""
+    ax = fsdp_axes(mesh)
+
+    def rec(tree, path):
+        if isinstance(tree, dict):
+            return {k: rec(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
+        stacked = any(path.startswith(p) or f"/{p}/" in f"/{path}/" for p in stacked_prefixes)
+        ndim = len(tree.shape)
+        spec = leaf_spec(path.split("/")[-1], ndim, ax, stacked)[:ndim]
+        fixed = tuple(
+            a if a is not None and tree.shape[i] % _axis_size(mesh, a) == 0 else None
+            for i, a in enumerate(spec)
+        )
+        return Sharding(mesh, fixed)
+
+    return rec(params, "")
+
+
+def struct(shape, dtype=torch.bfloat16) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` with no storage, on the ``meta``
+    device (under the dry run's ``FakeTensorMode`` a fake one). The
+    reference's ``jax.ShapeDtypeStruct``."""
+    return torch.empty(tuple(int(s) for s in shape), dtype=dtype, device="meta")

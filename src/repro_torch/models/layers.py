@@ -22,14 +22,33 @@ that require grad. The reference trains through its XLA
 :func:`attention_train` is that function in torch, on both devices, and
 autograd gives its backward (``attn_block(..., train=True)`` reaches it).
 :func:`xent_loss_chunked` is the reference's sequence-chunked loss.
+
+Parameters placed by :func:`repro_torch.models.base.shardings_for` are
+DTensors, and every layer here then runs on DTensors: the matmuls and
+norms by DTensor's own sharding propagation, which inserts the
+collectives, and attention on each rank's shard (:func:`attend_sharded`).
+Where the reference lets XLA reshard silently, the port redistributes
+explicitly: a projection whose head count the ``model`` axis does not
+divide is replicated over ``model`` before its head reshape
+(:func:`split_heads`), the residual stream's sequence is sharded and
+gathered at a layer's exit and entry under ``act_shard="seq"``
+(:func:`seq_shard`, :func:`seq_gather`), and a layer's parameters are
+gathered over the data axes when the layer runs (:func:`gather_data`,
+ZeRO-3).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.collectives import DATA_AXES, axis_size, has_axis
 from repro_torch.kernels.attention import check_lengths
+from repro_torch.models.base import from_local
 from repro_torch.kernels.ops import decode_attention_op, flash_attention_op
 
 _DECODE_WINDOW_TODO = (
@@ -58,6 +77,191 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sharded parameters: layouts of DTensor activations
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def replicate_plain():
+    """DTensor's ``implicit_replication``, nesting: inside, a plain tensor
+    met with DTensors (the positions, RoPE's tables, the optimizer's
+    scalars) stands replicated, being the same on every rank. The
+    library's context resets the switch when any nested use of it exits,
+    backward passes and outer calls included; this one restores it."""
+    d = DTensor._op_dispatcher
+    prev = d._allow_implicit_replication
+    d._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        d._allow_implicit_replication = prev
+
+
+def sharded(t) -> bool:
+    """Whether ``t`` is a DTensor (parameters placed by ``shardings_for``)."""
+    return isinstance(t, DTensor)
+
+
+def mesh_dim(mesh, name: str):
+    """The index of mesh axis ``name``, or None."""
+    return mesh.mesh_dim_names.index(name) if has_axis(mesh, name) else None
+
+
+def axis_ranks(mesh, name: str) -> int:
+    """The ranks along axis ``name``: 1 for an axis the mesh lacks."""
+    return axis_size(mesh, name) if has_axis(mesh, name) else 1
+
+
+def with_placements(t: DTensor, **by_axis) -> DTensor:
+    """``t`` redistributed with the placements of the named mesh axes
+    replaced (``model=Replicate()``); ``data=`` covers ``pod`` too."""
+    mesh = t.device_mesh
+    pl = list(t.placements)
+    for name, p in by_axis.items():
+        for a in (DATA_AXES if name == "data" else (name,)):
+            d = mesh_dim(mesh, a)
+            if d is not None:
+                pl[d] = p
+    return t if tuple(pl) == tuple(t.placements) else t.redistribute(mesh, pl)
+
+
+def gather_data(tree):
+    """ZeRO-3: a layer's parameters (DTensor leaves) gathered over the data
+    axes where they are sharded, kept sharded over ``model``; the gathers'
+    backward reduce-scatters the gradients. Plain leaves pass as they are,
+    and a tree of plain leaves is returned itself (its dicts' types kept)."""
+    if isinstance(tree, dict):
+        out = {k: gather_data(v) for k, v in tree.items()}
+        return tree if all(out[k] is v for k, v in tree.items()) else out
+    return with_placements(tree, data=Replicate()) if sharded(tree) else tree
+
+
+def settle(t: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sums reduced over ``model`` (an
+    all-reduce), the activation replicated there and its batch over the
+    data axes: the layout the residual stream keeps, so that DTensor does
+    not carry partial sums on into the next layer's products. Plain
+    tensors pass as they are."""
+    if not sharded(t):
+        return t
+    return with_placements(t, data=batch_placement(t), model=Replicate())
+
+
+class _GradAsValue(torch.autograd.Function):
+    """Identity forward; the backward lays the gradient out as the value
+    was (a partial sum reduced, a shard gathered)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.layout) if sharded(g) else g
+
+
+def grad_as_value(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its gradient laid out as ``x`` (a DTensor that autograd
+    records; otherwise ``x`` itself). DTensor's backward keeps partial sums
+    and shards where it can: at a tensor-parallel block's input (the
+    column-parallel products after a norm) that is Megatron's *f*, the
+    gradient all-reduced over ``model`` before the norm's backward, so it
+    reaches the previous block's row-parallel products whole and DTensor
+    does not gather their weights to meet a partial sum; after the merge of
+    replicated heads, a gradient sharded over them would meet a reshape it
+    cannot do."""
+    if sharded(x) and x.requires_grad and torch.is_grad_enabled():
+        return _GradAsValue.apply(x)
+    return x
+
+
+def seq_shard(h: torch.Tensor, cfg) -> torch.Tensor:
+    """Megatron-SP: shard the residual stream's sequence dim over `model`
+    between blocks (a DTensor (B, S, D) with S divisible), its batch over
+    the data axes. No-op unless cfg.act_shard == 'seq'."""
+    if not sharded(h) or getattr(cfg, "act_shard", "none") != "seq" or h.ndim != 3:
+        return h
+    if h.shape[1] % axis_ranks(h.device_mesh, "model"):
+        return h
+    return with_placements(h, data=batch_placement(h), model=Shard(1))
+
+
+def seq_gather(h: torch.Tensor, cfg) -> torch.Tensor:
+    """Megatron-SP companion: the sequence gathered at block entry so the
+    block's matmuls see batch-sharded, sequence-replicated layouts. Plain
+    tensors pass as they are."""
+    if getattr(cfg, "act_shard", "none") != "seq" or h.ndim != 3:
+        return h
+    return settle(h)
+
+
+def batch_placement(t: DTensor):
+    """Shard(0) over the data axes where the batch divides them (the
+    reference's ``P(dax, ...)`` with its divisibility guard); Replicate
+    over data axes of one rank, where the two are the same layout and
+    DTensor reshapes only the second."""
+    mesh = t.device_mesh
+    n = 1
+    for a in DATA_AXES:
+        n *= axis_ranks(mesh, a)
+    return Shard(0) if n > 1 and t.shape[0] % n == 0 else Replicate()
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n·hd) → (..., n, hd). A DTensor whose last dim is sharded over
+    ``model`` is first replicated there when ``model`` does not divide
+    ``n`` (DTensor refuses that reshape, where XLA reshards silently), so
+    its heads are then whole on every rank."""
+    if sharded(t):
+        d = mesh_dim(t.device_mesh, "model")
+        if d is not None and t.placements[d] == Shard(t.ndim - 1) and n % t.device_mesh.size(d):
+            t = with_placements(t, model=Replicate())
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def place_heads(q, k, v, qd: int = 2, kd: int = 2, mha: bool = True):
+    """q (…, H, D) and k, v (…, KH, D) DTensors (heads at dims ``qd`` and
+    ``kd``) laid out for attention on each rank's shard: the batch over the
+    data axes where it divides them; over ``model`` the heads by whole GQA
+    groups where ``model`` divides KH, else (with ``mha``), where it
+    divides H, K/V repeated to H heads (the MHA view, the repeat of
+    ``expand_heads_for_tp``) and sharded alike, else replicated (a cache
+    sharded over its sequence is then gathered)."""
+    mesh = q.device_mesh
+    m = axis_ranks(mesh, "model")
+    H, KH = q.shape[qd], k.shape[kd]
+    bp = batch_placement(q)
+    if mha and m > 1 and KH % m and H % m == 0:
+        k, v = (with_placements(t, data=bp, model=Replicate()) for t in (k, v))
+        k, v = (torch.repeat_interleave(t, H // KH, dim=kd) for t in (k, v))
+        KH = H
+    by_heads = m > 1 and KH % m == 0
+    q = with_placements(q, data=bp, model=Shard(qd) if by_heads else Replicate())
+    k, v = (with_placements(t, data=bp, model=Shard(kd) if by_heads else Replicate())
+            for t in (k, v))
+    return q, k, v
+
+
+def attend_sharded(fn, q, k, v, *rest, qd: int = 2, kd: int = 2, mha: bool = True):
+    """``fn(q, k, v, *rest)`` (an attention over plain tensors) on each
+    rank's shard of q, k, v placed by :func:`place_heads` (``rest``: plain
+    arguments, or DTensors over the batch alone, like a decode's lengths);
+    the output is a DTensor laid out as q. Every query head meets its KV
+    heads on its rank, so the shards' attentions are the whole's; autograd
+    flows through (``local_map``)."""
+    q, k, v = place_heads(q, k, v, qd, kd, mha)
+    mesh = q.device_mesh
+    bp = batch_placement(q)
+    rest = tuple(with_placements(r, data=bp, model=Replicate()) if sharded(r) else r
+                 for r in rest)
+    run = local_map(fn, out_placements=(tuple(q.placements),),
+                    in_placements=(list(q.placements), list(k.placements), list(v.placements),
+                                   *(list(r.placements) if sharded(r) else None for r in rest)),
+                    redistribute_inputs=True, device_mesh=mesh)
+    return run(q, k, v, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +295,9 @@ def attention_chunked(
             f"causal or windowed attention with q_offset={q_offset} over Sq={Sq}, "
             f"Skv={Skv}: the kernel's mask is offset by Skv - Sq"
         )
+    if sharded(q):
+        return attend_sharded(lambda a, b, c: flash_attention_op(
+            a, b, c, causal=causal, scale=scale, window=window), q, k, v)
     return flash_attention_op(q, k, v, causal=causal, scale=scale, window=window)
 
 
@@ -191,6 +398,10 @@ def attention_train(
     the next block scales by exp(-1e30 - m) = 0, so the output and the
     gradient are those of the reference's full loop.
     """
+    if sharded(q):
+        return attend_sharded(lambda a, b, c: attention_train(
+            a, b, c, causal=causal, window=window, scale=scale, q_chunk=q_chunk,
+            k_chunk=k_chunk, q_offset=q_offset), q, k, v)
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -249,6 +460,9 @@ def attention_decode(
     stops at each sequence's length."""
     if window > 0:
         raise NotImplementedError(_DECODE_WINDOW_TODO)
+    if sharded(q):
+        return attend_sharded(lambda a, b, c, n: decode_attention_op(a, b, c, n, scale=scale),
+                              q, k_cache, v_cache, lengths, qd=1, mha=False)
     return decode_attention_op(q, k_cache, v_cache, lengths, scale=scale)
 
 
@@ -260,9 +474,11 @@ def decode_rows(lengths: torch.Tensor, S: int) -> torch.Tensor:
     (JAX's out-of-bounds ``.at[].set``), and an index past the cache would
     be an IndexError on the CPU and a device-side assert on the card. Under
     :func:`~repro_torch.kernels.attention.lengths_checked` (a captured
-    step) the caller has checked its host copy and nothing is read."""
+    step) the caller has checked its host copy and nothing is read. Of a
+    DTensor each rank checks its own rows."""
     valid = lengths + 1
-    check_lengths(valid, S, f"a decode step over a cache of {S} rows: lengths + 1")
+    check_lengths(valid.to_local() if sharded(valid) else valid, S,
+                  f"a decode step over a cache of {S} rows: lengths + 1")
     return valid
 
 
@@ -280,12 +496,7 @@ def attn_proj_qkv(p: dict, x: torch.Tensor, cfg) -> tuple:
         q = q + p["bq_col"]
         k = k + p["bk_col"]
         v = v + p["bv_col"]
-    B, S = x.shape[0], x.shape[1]
-    return (
-        q.reshape(B, S, H, hd),
-        k.reshape(B, S, KH, hd),
-        v.reshape(B, S, KH, hd),
-    )
+    return split_heads(q, H, hd), split_heads(k, KH, hd), split_heads(v, KH, hd)
 
 
 def attn_proj_kv(p: dict, x: torch.Tensor, cfg) -> tuple:
@@ -297,8 +508,7 @@ def attn_proj_kv(p: dict, x: torch.Tensor, cfg) -> tuple:
     if cfg.qkv_bias:
         k = k + p["bk_col"]
         v = v + p["bv_col"]
-    B, S = x.shape[0], x.shape[1]
-    return k.reshape(B, S, KH, hd), v.reshape(B, S, KH, hd)
+    return split_heads(k, KH, hd), split_heads(v, KH, hd)
 
 
 def expand_heads_for_tp(q, k, v, cfg):
@@ -330,18 +540,19 @@ def attn_block(
     The reference's ``kv_override`` has no caller on these paths (whisper's
     prefill projects its cross K/V itself) and is not ported."""
     B, S, _ = x.shape
-    q, k, v = attn_proj_qkv(p, x, cfg)
+    q, k, v = attn_proj_qkv(p, grad_as_value(x), cfg)
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q, k, v, H = expand_heads_for_tp(q, k, v, cfg)
     attend = attention_train if train else attention_chunked
     out = attend(q, k, v, causal=causal, window=window)
-    out = out[:, :, :H].reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo_row"]
+    out = grad_as_value(out[:, :, :H].reshape(B, S, cfg.n_heads * cfg.hd))
+    return settle(out @ p["wo_row"])
 
 
 def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = grad_as_value(x)
     if cfg.mlp_act == "silu_gated":
         g = x @ p["wg_col"]
         u = x @ p["wu_col"]
@@ -349,7 +560,7 @@ def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:  # gelu (the reference's jax.nn.gelu is the tanh form)
         h = x @ p["wu_col"]
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return h @ p["wd_row"]
+    return settle(h @ p["wd_row"])
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +582,16 @@ def lm_logits(x: torch.Tensor, out_embed: torch.Tensor) -> torch.Tensor:
 def _xent_chunk(xb, lb, out_embed, vocab_size):
     """(sum of -log p(label), count of valid labels) over one chunk, as the
     reference's scan step computes them: logits rounded to the storage type
-    by the product, then float32."""
+    by the product, then float32. On DTensors, a vocab split over ``model``
+    takes :func:`_xent_chunk_sharded`; one that is not, this function on
+    each rank's rows (its sums partial over the ranks holding other rows),
+    which is then the plain path's arithmetic."""
+    if sharded(xb):
+        d = mesh_dim(out_embed.device_mesh, "model")
+        if d is not None and out_embed.placements[d] == Shard(1) and \
+                out_embed.device_mesh.size(d) > 1:
+            return _xent_chunk_sharded(xb, lb, out_embed, vocab_size)
+        return _xent_chunk_rows(xb, lb, out_embed, vocab_size)
     logits = (xb @ out_embed).float()
     Vp = out_embed.shape[1]
     if vocab_size is not None and vocab_size < Vp:
@@ -383,18 +603,104 @@ def _xent_chunk(xb, lb, out_embed, vocab_size):
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
+def _xent_chunk_rows(xb, lb, out_embed, vocab_size):
+    """:func:`_xent_chunk` on each rank's rows of ``xb`` and ``lb`` with
+    the whole vocab: both sums partial over the mesh dims the rows are
+    split on, and so is ``out_embed``'s gradient where it is replicated."""
+    mesh = xb.device_mesh
+    if not sharded(lb):  # the same on every rank
+        lb = DTensor.from_local(lb, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lb = lb.redistribute(mesh, xb.placements)  # the same rows as xb's (batch, sequence)
+    part = [Partial() if p.is_shard() else Replicate() for p in xb.placements]
+    emb_grad = [Partial() if x.is_shard() and e == Replicate() else e
+                for x, e in zip(xb.placements, out_embed.placements)]
+    run = local_map(lambda x, lab, w: _xent_chunk(x, lab, w, vocab_size),
+                    out_placements=(tuple(part), tuple(part)),
+                    in_placements=(tuple(xb.placements), tuple(lb.placements),
+                                   tuple(out_embed.placements)),
+                    in_grad_placements=(tuple(xb.placements), tuple(lb.placements),
+                                        tuple(emb_grad)),
+                    redistribute_inputs=True, device_mesh=mesh)
+    return run(xb, lb, out_embed)
+
+
+def _vocab_ids(out_embed: DTensor) -> DTensor:
+    """0 … Vp-1 laid out as ``out_embed``'s columns (its vocab sharded
+    over ``model``): each rank makes its own slice."""
+    mesh = out_embed.device_mesh
+    d = mesh_dim(mesh, "model")
+    Vp = out_embed.shape[1]
+    Vl = Vp // mesh.size(d)
+    lo = mesh.get_local_rank(d) * Vl
+    pl = [Replicate()] * mesh.ndim
+    pl[d] = Shard(0)
+    return from_local(torch.arange(lo, lo + Vl, device=out_embed.device), mesh, pl, (Vp,))
+
+
+class _VocabXent(torch.autograd.Function):
+    """Σ over tokens of (log-sum-exp − the label's logit) · valid, over
+    logits (B, c, Vp) sharded over ``model`` on the vocab: the max and the
+    sums all-reduced, never the logits, and the analytic gradient
+    (softmax − one-hot) · valid laid out as the logits. torch's
+    ``logsumexp`` formula (the max, then the log of the sum of the
+    exponentials, plus the max)."""
+
+    @staticmethod
+    def forward(ctx, logits, gold_mask, valid):
+        m = with_placements(logits.amax(dim=-1, keepdim=True), model=Replicate())
+        e = torch.exp(logits - m)
+        s = with_placements(e.sum(dim=-1, keepdim=True), model=Replicate())
+        lse = torch.log(s[..., 0]) + m[..., 0]
+        gold = with_placements(torch.where(gold_mask, logits, 0.0).sum(dim=-1),
+                               model=Replicate())
+        ctx.save_for_backward(e / s, gold_mask, valid)
+        return ((lse - gold) * valid).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        p, gold_mask, valid = ctx.saved_tensors
+        return (p - gold_mask.float()) * (valid * g)[..., None], None, None
+
+
+def _xent_chunk_sharded(xb, lb, out_embed, vocab_size):
+    """:func:`_xent_chunk` over vocab-sharded logits, without gathering
+    them (:class:`_VocabXent`); the label's logit picked by a mask made on
+    each rank's vocab slice."""
+    logits = (grad_as_value(xb) @ out_embed).float()
+    ids = _vocab_ids(out_embed)
+    if vocab_size is not None and vocab_size < out_embed.shape[1]:
+        logits = torch.where(ids >= vocab_size, NEG_INF, logits)
+    valid = (lb >= 0).float()
+    gold_mask = ids == torch.clamp(lb, min=0)[..., None].long()
+    return _VocabXent.apply(logits, gold_mask, valid), valid.sum()
+
+
+def pad_rows(t: torch.Tensor, pad: int, value: float = 0) -> torch.Tensor:
+    """``t`` (B, S, ...) with ``pad`` rows of ``value`` after its S; a
+    DTensor (its S not sharded) padded on each rank's shard, whose layout
+    DTensor's own padding does not keep on every version."""
+    widths = (0, 0) * (t.ndim - 2) + (0, pad)
+    if not sharded(t):
+        return F.pad(t, widths, value=value)
+    pl = tuple(t.placements)
+    return local_map(lambda a: F.pad(a, widths, value=value), out_placements=(pl,),
+                     in_placements=(pl,), device_mesh=t.device_mesh)(t)
+
+
 def xent_loss_chunked(x: torch.Tensor, out_embed: torch.Tensor, labels: torch.Tensor,
                       chunk: int = 512, vocab_size: int | None = None) -> torch.Tensor:
     """Sequence-chunked softmax cross-entropy, the mean over labels >= 0:
     each chunk of ``chunk`` positions runs under ``torch.utils.checkpoint``,
     so the live logits are (B, chunk, V) in float32 and the backward
     recomputes them. ``vocab_size`` masks the padded vocab columns with
-    -1e30."""
+    -1e30. A DTensor ``x`` is settled first (its sequence gathered over
+    ``model`` under ``act_shard="seq"``): the chunks slice the sequence."""
+    x = settle(x)
     B, S, D = x.shape
     pad = (-S) % chunk
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        x = pad_rows(x, pad)
+        labels = pad_rows(labels, pad, value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(x.shape[1] // chunk):

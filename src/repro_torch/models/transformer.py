@@ -8,11 +8,26 @@ reading the views ``w[l]``. A moe layer's MLP is :func:`moe_ffn`. The
 enc-dec decoder's prefill and decode step live with their family in
 ``models/zoo.py``, as in the reference; its training forward is
 :func:`encdec_decoder_forward` here.
+
+Two ways over a mesh, chosen by the parameters:
+
+* plain (replicated) parameters with ``mesh=``: the data-parallel path,
+  its collectives explicit (the vocab-sharded :func:`embed_lookup` over
+  ``torch.distributed``, ``make_train_step(model, mesh)``);
+* parameters placed by ``shardings_for`` (DTensors, the mesh theirs): the
+  dense and vlm stacks run on DTensors, each layer's parameters gathered
+  over the data axes (ZeRO-3) and sharded over ``model`` (TP), the
+  residual stream sharded over ``model`` between layers under
+  ``act_shard="seq"``, the prefill's and decode's caches laid out as the
+  reference's ``input_spec_for`` lays them (:func:`cache_like`). Such a
+  call takes no ``mesh=``.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.collectives import (
@@ -25,7 +40,7 @@ from repro_torch.distributed.collectives import (
     has_axis,
 )
 from repro_torch.models import layers as L
-from repro_torch.models.base import ArchConfig
+from repro_torch.models.base import ArchConfig, Sharding, from_local
 from repro_torch.models.moe import moe_ffn, moe_param_shapes
 
 
@@ -115,7 +130,14 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.
     back, so every rank returns the whole (B, S, D) lookup, as the
     reference's ``shard_map`` does. The collectives carry no gradient:
     training takes each rank's batch slice through ``make_train_step(model,
-    mesh)``, whose loss runs without a mesh."""
+    mesh)``, whose loss runs without a mesh.
+
+    A DTensor ``embed`` (placed by ``shardings_for``: vocab rows over
+    ``model``) takes :func:`_embed_sharded` and no ``mesh``."""
+    if L.sharded(embed):
+        if mesh is not None:
+            raise ValueError("sharded parameters carry their mesh: pass no mesh=")
+        return _embed_sharded(embed, tokens)
     if not has_axis(mesh, "model"):
         return L.embed_tokens(embed, tokens)
     if torch.is_grad_enabled() and embed.requires_grad:
@@ -139,6 +161,92 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.
     return all_gather_rows(out, mesh, axes) if split else out
 
 
+def _embed_sharded(embed: DTensor, tokens) -> DTensor:
+    """The vocab-sharded lookup on DTensors, differentiable: each rank
+    looks its batch shard of ``tokens`` up in its ``V / m`` rows of
+    ``embed``, zeroes the misses, and the (B, S, D) result, a partial sum
+    over ``model``, is all-reduced there. The local table's gradient is
+    partial over the data axes (each rank saw its batch shard only), and is
+    summed when the train step lays it out as the parameter (over the axes
+    the tokens are sharded on). A table the rules left replicated is an
+    ordinary lookup."""
+    mesh = embed.device_mesh
+    if not L.sharded(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    md = L.mesh_dim(mesh, "model")
+    if md is None or embed.placements[md] != Shard(0):
+        return F.embedding(tokens, embed)
+    tokens = L.with_placements(tokens, model=Replicate())
+    V, m = embed.shape[0], mesh.size(md)
+    Vl = V // m
+    lo = mesh.get_local_rank(md) * Vl
+    grad_pl = [Partial() if p == Replicate() and t.is_shard() else p
+               for p, t in zip(embed.placements, tokens.placements)]
+    e = embed.to_local(grad_placements=grad_pl)
+    ids = tokens.to_local() - lo
+    ok = (ids >= 0) & (ids < Vl)
+    out = L.embed_tokens(e, torch.clamp(ids, 0, Vl - 1))
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    pl = list(tokens.placements)
+    pl[md] = Partial()
+    out = from_local(out, mesh, pl, (*tokens.shape, embed.shape[1]))
+    return L.with_placements(out, model=Replicate())
+
+
+def cache_like(name: str, shape, dtype, like: DTensor) -> DTensor:
+    """Zeros of ``shape`` laid out as the reference's ``input_spec_for``
+    lays cache ``name`` on ``like``'s mesh: a DTensor whose every rank
+    holds its zeroed shard."""
+    from repro_torch.launch.shardings import input_spec_for
+
+    mesh = like.device_mesh
+    sh = Sharding(mesh, input_spec_for(name, tuple(shape), mesh))
+    local = torch.zeros(sh.shard_shape(shape), dtype=dtype, device=like.device)
+    return from_local(local, mesh, sh.placements, shape)
+
+
+def _cache_layout(cache: DTensor) -> tuple:
+    """(the batch's placement, the new rows' placement over ``model``,
+    whether the sequence is sharded over ``model``) of a stacked (L, B, S,
+    KH, hd) cache laid out by ``input_spec_for``."""
+    mesh = cache.device_mesh
+    md = L.mesh_dim(mesh, "model")
+    over_model = cache.placements[md] if md is not None else Replicate()
+    bp = Shard(0) if Shard(1) in cache.placements else Replicate()
+    return bp, Shard(2) if over_model == Shard(3) else Replicate(), over_model == Shard(2)
+
+
+def write_prompt(cache: DTensor, i: int, k: DTensor) -> None:
+    """``cache[i, :, :S] = k`` (k: (B, S, KH, hd)) on each rank's shard of
+    the cache: its batch rows, its heads or its chunk of the sequence."""
+    bp, kp, seq = _cache_layout(cache)
+    kl = L.with_placements(k, data=bp, model=kp).to_local()
+    cl = cache.to_local()
+    C = cl.shape[2]
+    lo = cache.device_mesh.get_local_rank("model") * C if seq else 0
+    n = max(0, min(C, k.shape[1] - lo))
+    cl[i, :, :n] = kl[:, lo:lo + n]
+
+
+def write_step(cache: DTensor, i: int, k: DTensor, pos) -> None:
+    """``cache[i][b, pos[b]] = k[b, 0]`` on each rank's shard; over a
+    sequence sharded over ``model`` each rank writes the rows that fall in
+    its chunk and keeps the others."""
+    bp, kp, seq = _cache_layout(cache)
+    kl = L.with_placements(k, data=bp, model=kp).to_local()[:, 0]
+    pl = L.with_placements(pos, data=bp, model=Replicate()).to_local()
+    cl = cache.to_local()[i]
+    rows = torch.arange(cl.shape[0], device=cl.device)
+    if not seq:
+        cl[rows, pl] = kl
+        return
+    C = cl.shape[1]
+    lo = cache.device_mesh.get_local_rank("model") * C
+    at = torch.clamp(pl - lo, 0, C - 1)
+    mine = ((pl >= lo) & (pl < lo + C))[:, None, None]
+    cl[rows, at] = torch.where(mine, kl, cl[rows, at])
+
+
 # ---------------------------------------------------------------------------
 # Dense decoder: training forward, prefill and decode
 # ---------------------------------------------------------------------------
@@ -146,10 +254,12 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.
 
 def _layer_fwd(lp: dict, h: torch.Tensor, cfg: ArchConfig, positions, causal: bool,
                window: int) -> torch.Tensor:
+    # sharded: the parameters gathered over the data axes, the sequence at entry
+    lp, h = L.gather_data(lp), L.seq_gather(h, cfg)
     a = L.attn_block(lp["attn"], L.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
                      positions=positions, causal=causal, window=window, train=True)
     h = h + a
-    return h + _ffn(lp, L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+    return L.seq_shard(h + _ffn(lp, L.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg), cfg)
 
 
 def decoder_forward(
@@ -165,9 +275,10 @@ def decoder_forward(
     (differentiable; the kernels have no backward), each under
     ``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
     ``jax.checkpoint`` on its scan body), so the backward keeps one
-    (B, S, D) input a layer. The reference's ``seq_shard`` and
-    ``seq_gather`` constrain the sequence's layout over a mesh of sharded
-    parameters, which come with the next slice (ROADMAP Queue 1 item 10)."""
+    (B, S, D) input a layer. On DTensors the sequence is sharded over
+    ``model`` between layers (:func:`L.seq_shard`, the reference's; a no-op
+    unless ``cfg.act_shard == "seq"``), gathered at a layer's entry."""
+    h = L.seq_shard(h, cfg)
     for i in range(n_stacked(layers_params)):
         lp = layer_params(layers_params, i)
         if cfg.remat:
@@ -192,10 +303,14 @@ def decoder_prefill(
     B, S, _ = h.shape
     KH, hd = cfg.n_kv_heads, cfg.hd
     n_layers = n_stacked(layers_params)
-    kcs = torch.zeros((n_layers, B, cache_len, KH, hd), dtype=h.dtype, device=h.device)
-    vcs = torch.zeros_like(kcs)
+    shape = (n_layers, B, cache_len, KH, hd)
+    if L.sharded(h):
+        kcs, vcs = cache_like("k_cache", shape, h.dtype, h), cache_like("v_cache", shape, h.dtype, h)
+    else:
+        kcs = torch.zeros(shape, dtype=h.dtype, device=h.device)
+        vcs = torch.zeros_like(kcs)
     for i in range(n_layers):
-        lp = layer_params(layers_params, i)
+        lp = L.gather_data(layer_params(layers_params, i))
         hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)
         q, k, v = L.attn_proj_qkv(lp["attn"], hn, cfg)
         if cfg.rope_theta > 0:
@@ -205,11 +320,15 @@ def decoder_prefill(
         qe, ke, ve, Hr = L.expand_heads_for_tp(q, k, v, cfg)
         att = L.attention_chunked(qe, ke, ve, causal=True, window=window)
         att = att[:, :, :Hr].reshape(B, S, cfg.n_heads * hd)
-        h = h + att @ lp["attn"]["wo_row"]
+        h = h + L.settle(att @ lp["attn"]["wo_row"])
         hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
         h = h + _ffn(lp, hn2, cfg)
-        kcs[i, :, :S] = k
-        vcs[i, :, :S] = v
+        if L.sharded(h):
+            write_prompt(kcs, i, k)
+            write_prompt(vcs, i, v)
+        else:
+            kcs[i, :, :S] = k
+            vcs[i, :, :S] = v
     return h, (kcs, vcs)
 
 
@@ -232,17 +351,21 @@ def decoder_decode_step(
     valid = L.decode_rows(lengths, kcs.shape[2])  # the new row included; raises if full
     rows = torch.arange(B, device=h.device)
     for i in range(n_stacked(layers_params)):
-        lp = layer_params(layers_params, i)
+        lp = L.gather_data(layer_params(layers_params, i))
         kc, vc = kcs[i], vcs[i]
         hn = L.rmsnorm(h, lp["ln1"], cfg.norm_eps)[:, None, :]  # (B,1,D)
         q, k, v = L.attn_proj_qkv(lp["attn"], hn, cfg)
         if cfg.rope_theta > 0:
             q = L.rope(q, pos[:, None], cfg.rope_theta)
             k = L.rope(k, pos[:, None], cfg.rope_theta)
-        kc[rows, pos] = k[:, 0]
-        vc[rows, pos] = v[:, 0]
+        if L.sharded(h):
+            write_step(kcs, i, k, pos)
+            write_step(vcs, i, v, pos)
+        else:
+            kc[rows, pos] = k[:, 0]
+            vc[rows, pos] = v[:, 0]
         att = L.attention_decode(q[:, 0], kc, vc, valid, window=window)
-        h = h + att.reshape(B, -1) @ lp["attn"]["wo_row"]
+        h = h + L.settle(att.reshape(B, -1) @ lp["attn"]["wo_row"])
         hn2 = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
         h = h + _ffn(lp, hn2[:, None, :], cfg)[:, 0]
     return h, (kcs, vcs)

@@ -47,6 +47,8 @@ by one).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
@@ -55,7 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.base import ArchConfig
+from repro_torch.models.base import ArchConfig, ShapeSpec, struct
 from repro_torch.models.transformer import (
     attn_param_shapes,
     decoder_decode_step,
@@ -108,6 +110,9 @@ def _head(h, params, cfg):
     """LM head with padded-vocab masking. h: (..., D) -> (..., Vp)."""
     z = h @ params["out_embed"]
     V, Vp = cfg.vocab_size, params["out_embed"].shape[1]
+    if Vp > V and L.sharded(z):  # the vocab sharded over model: no write in place
+        pad = torch.arange(Vp, device=z.device) >= V
+        return torch.where(pad, torch.tensor(-1e30, dtype=z.dtype, device=z.device), z)
     if Vp > V:
         z[..., V:] = -1e30
     return z
@@ -133,6 +138,40 @@ def _nest(flat: dict) -> dict:
     return out
 
 
+SHARDED_FAMILIES = ("dense", "vlm")  # the families that run on sharded parameters
+SHARDED_TODO = {
+    "moe": "routing under DTensor (ROADMAP Queue 1 item 10, the dry run of moe)",
+    "ssm": "the SSD and sLSTM scans under DTensor (ROADMAP Queue 1 item 10, the dry run "
+           "of ssm and hybrid)",
+    "hybrid": "the SSD scan and the shared block under DTensor (ROADMAP Queue 1 item 10, "
+              "the dry run of ssm and hybrid)",
+    "encdec": "the encoder under DTensor (ROADMAP Queue 1 item 10, the dry run of encdec)",
+}
+
+
+def params_sharded(params: dict) -> bool:
+    """Whether ``params`` are DTensors (placed by ``shardings_for``)."""
+    return any(L.sharded(v) for _, v in _leaves(params))
+
+
+def sharded_call(cfg: ArchConfig, params: dict, mesh=None):
+    """The context a call on ``params`` runs in: none for plain tensors;
+    for DTensors :func:`~repro_torch.models.layers.replicate_plain` (a
+    plain tensor among them, such as the positions, is the same on every
+    rank and stands replicated), after refusing a ``mesh=`` (the parameters
+    carry theirs: a call runs one path, never both) and a family not yet
+    ported to sharded parameters. A backward through a sharded loss runs
+    in such a context too (``train.step.make_train_step``)."""
+    if not params_sharded(params):
+        return contextlib.nullcontext()
+    if mesh is not None:
+        raise ValueError("sharded parameters carry their mesh: call without mesh=")
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(f"{cfg.family} on sharded parameters: "
+                                  f"{SHARDED_TODO[cfg.family]}")
+    return L.replicate_plain()
+
+
 class Model(nn.Module):
     """An LM of a built family. Its parameters are a nested dict of tensors
     in the reference's layout (stacked per-layer leaves under ``layers``,
@@ -145,6 +184,7 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self._shapes, self._loss, self._prefill, self._decode = _FAMILIES[cfg.family]
+        self._input_specs = _INPUT_SPECS[cfg.family]
         self.shapes = self._shapes(cfg)
         self.leaves = nn.ParameterDict()
 
@@ -191,14 +231,30 @@ class Model(nn.Module):
         the leaves of ``params`` that require grad, without a mesh. On a
         mesh with a ``model`` axis the token embedding is the
         vocab-sharded lookup (:func:`embed_lookup`), as in ``prefill`` and
-        ``decode``."""
-        return self._loss(params, batch, self.cfg, mesh=mesh)
+        ``decode``.
+
+        Parameters placed by ``shardings_for`` (DTensors; the dense and
+        vlm families) run sharded on their own mesh, differentiable, and
+        take no ``mesh``: the batch and caches are DTensors or plain
+        tensors alike on every rank, and the results DTensors
+        (:func:`sharded_call`)."""
+        with sharded_call(self.cfg, params, mesh):
+            return self._loss(params, batch, self.cfg, mesh=mesh)
 
     def prefill(self, params: dict, batch: dict, cache_len: int | None = None, *, mesh=None):
-        return self._prefill(params, batch, self.cfg, cache_len=cache_len, mesh=mesh)
+        with sharded_call(self.cfg, params, mesh):
+            return self._prefill(params, batch, self.cfg, cache_len=cache_len, mesh=mesh)
 
     def decode(self, params: dict, batch: dict, caches: tuple, mesh=None):
-        return self._decode(params, batch, caches, self.cfg, mesh=mesh)
+        with sharded_call(self.cfg, params, mesh):
+            return self._decode(params, batch, caches, self.cfg, mesh=mesh)
+
+    def input_specs(self, sp: ShapeSpec) -> dict:
+        """The step's inputs for shape ``sp`` as tensors without storage
+        (:func:`~repro_torch.models.base.struct`), with the reference's names,
+        shapes, dtypes and order: a decode step's caches follow its tokens
+        and lengths."""
+        return self._input_specs(self.cfg, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +280,7 @@ def _lm_embed_inputs(params, batch, cfg, mesh=None):
     tok_emb = embed_lookup(params["embed"], batch["tokens"], mesh).to(_dtype(cfg))
     if cfg.frontend == "vision":
         patches = _frontend_input(batch, "patches", _vlm_patches(cfg), cfg).to(_dtype(cfg))
-        return torch.cat([patches @ params["vision_proj_col"], tok_emb], dim=1)
+        return torch.cat([L.settle(patches @ params["vision_proj_col"]), tok_emb], dim=1)
     return tok_emb
 
 
@@ -236,7 +292,7 @@ def _lm_loss(params, batch, cfg: ArchConfig, mesh=None):
                         window=cfg.sliding_window)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if cfg.frontend == "vision":  # the loss over the text positions only
-        h = h[:, _vlm_patches(cfg):]
+        h = L.settle(h)[:, _vlm_patches(cfg):]
     return L.xent_loss_chunked(h, params["out_embed"], batch["labels"],
                                vocab_size=cfg.vocab_size)
 
@@ -261,6 +317,31 @@ def _lm_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     )
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _head(h, params, cfg), caches
+
+
+
+def _lm_input_specs(cfg: ArchConfig, sp: ShapeSpec) -> dict:
+    B, Ss = sp.global_batch, sp.seq_len
+    dt = _dtype(cfg)
+    KH, hd, Ld = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    text = Ss - (_vlm_patches(cfg) if cfg.frontend == "vision" else 0)
+    out: dict = {}
+    if sp.kind == "train":
+        out["tokens"] = struct((B, text), torch.int32)
+        out["labels"] = struct((B, text), torch.int32)
+        if cfg.frontend == "vision":
+            out["patches"] = struct((B, _vlm_patches(cfg), cfg.d_model), dt)
+    elif sp.kind == "prefill":
+        out["tokens"] = struct((B, text), torch.int32)
+        if cfg.frontend == "vision":
+            out["patches"] = struct((B, _vlm_patches(cfg), cfg.d_model), dt)
+    else:  # decode
+        Sc = sp.seq_len if cfg.sliding_window == 0 else min(sp.seq_len, cfg.sliding_window)
+        out["tokens"] = struct((B,), torch.int32)
+        out["lengths"] = struct((B,), torch.int32)
+        out["k_cache"] = struct((Ld, B, Sc, KH, hd), dt)
+        out["v_cache"] = struct((Ld, B, Sc, KH, hd), dt)
+    return out
 
 
 
@@ -403,6 +484,29 @@ def _whisper_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     return _head(h, params, cfg), caches
 
 
+def _whisper_input_specs(cfg: ArchConfig, sp: ShapeSpec) -> dict:
+    B, Ss = sp.global_batch, sp.seq_len
+    dt = _dtype(cfg)
+    KH, hd, Ld = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    out: dict = {}
+    if sp.kind == "train":
+        out["frames"] = struct((B, _enc_frames(cfg), cfg.d_model), dt)
+        out["tokens"] = struct((B, Ss), torch.int32)
+        out["labels"] = struct((B, Ss), torch.int32)
+    elif sp.kind == "prefill":
+        out["frames"] = struct((B, _enc_frames(cfg), cfg.d_model), dt)
+        out["tokens"] = struct((B, Ss), torch.int32)
+    else:
+        out["tokens"] = struct((B,), torch.int32)
+        out["lengths"] = struct((B,), torch.int32)
+        out["k_cache"] = struct((Ld, B, Ss, KH, hd), dt)
+        out["v_cache"] = struct((Ld, B, Ss, KH, hd), dt)
+        out["xk_cache"] = struct((Ld, B, _enc_frames(cfg), KH, hd), dt)
+        out["xv_cache"] = struct((Ld, B, _enc_frames(cfg), KH, hd), dt)
+    return out
+
+
+
 # ---------------------------------------------------------------------------
 # xLSTM (ssm family)
 # ---------------------------------------------------------------------------
@@ -516,6 +620,31 @@ def _xlstm_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
             cache[g].copy_(new)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return _head(h, params, cfg), caches
+
+
+def _xlstm_input_specs(cfg: ArchConfig, sp: ShapeSpec) -> dict:
+    B, Ss = sp.global_batch, sp.seq_len
+    dt = _dtype(cfg)
+    ng, mpg, ns = _xlstm_layout(cfg)
+    H = cfg.n_heads
+    P = cfg.d_model // H
+    nm = ng * mpg
+    f32, i32 = torch.float32, torch.int32
+    if sp.kind == "train":
+        return {"tokens": struct((B, Ss), i32), "labels": struct((B, Ss), i32)}
+    if sp.kind == "prefill":
+        return {"tokens": struct((B, Ss), i32)}
+    return {
+        "tokens": struct((B,), i32),
+        "lengths": struct((B,), i32),
+        "mh": struct((nm, B * H, 1, P, P), f32),
+        "mn": struct((nm, B * H, 1, P, 1), f32),
+        "sc": struct((ns, B, cfg.d_model), f32),
+        "sn": struct((ns, B, cfg.d_model), f32),
+        "sm": struct((ns, B, cfg.d_model), f32),
+        "sy": struct((ns, B, H, P), dt),
+    }
+
 
 
 # ---------------------------------------------------------------------------
@@ -654,6 +783,30 @@ def _zamba_decode(params, batch, caches, cfg: ArchConfig, mesh=None):
     return _head(h, params, cfg), caches
 
 
+def _zamba_input_specs(cfg: ArchConfig, sp: ShapeSpec) -> dict:
+    B, Ss = sp.global_batch, sp.seq_len
+    dt = _dtype(cfg)
+    ng, k, rem = _zamba_layout(cfg)
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    P = cfg.d_inner // H
+    Ck = cfg.d_inner + 2 * N
+    i32 = torch.int32
+    if sp.kind == "train":
+        return {"tokens": struct((B, Ss), i32), "labels": struct((B, Ss), i32)}
+    if sp.kind == "prefill":
+        return {"tokens": struct((B, Ss), i32)}
+    Sw = min(Ss, cfg.sliding_window) if cfg.sliding_window else Ss
+    return {
+        "tokens": struct((B,), i32),
+        "lengths": struct((B,), i32),
+        "ssm_h": struct((cfg.n_layers, B, H, N, P), torch.float32),
+        "conv_buf": struct((cfg.n_layers, B, cfg.ssm_conv - 1, Ck), dt),
+        "k_cache": struct((ng, B, Sw, cfg.n_kv_heads, cfg.hd), dt),
+        "v_cache": struct((ng, B, Sw, cfg.n_kv_heads, cfg.hd), dt),
+    }
+
+
+
 # ---------------------------------------------------------------------------
 # build_model dispatch
 # ---------------------------------------------------------------------------
@@ -668,8 +821,37 @@ _FAMILIES = {
     "hybrid": (_zamba_shapes, _zamba_loss, _zamba_prefill, _zamba_decode),
 }
 
+# family -> its input specs (the reference's ``Model.input_specs``)
+_INPUT_SPECS = {"dense": _lm_input_specs, "moe": _lm_input_specs, "vlm": _lm_input_specs,
+                "encdec": _whisper_input_specs, "ssm": _xlstm_input_specs,
+                "hybrid": _zamba_input_specs}
+
+# family -> the decode caches' names in the order its decode takes them
+_CACHES = {
+    "dense": ("k_cache", "v_cache"),
+    "moe": ("k_cache", "v_cache"),
+    "vlm": ("k_cache", "v_cache"),
+    "encdec": ("k_cache", "v_cache", "xk_cache", "xv_cache"),
+    "ssm": ("mh", "mn", "sc", "sn", "sm", "sy"),
+    "hybrid": ("ssm_h", "conv_buf", "k_cache", "v_cache"),
+}
+
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family in _FAMILIES:
         return Model(cfg)
     raise ValueError(cfg.family)
+
+
+def decode_caches_from_specs(model: Model, sp: ShapeSpec, device="meta") -> tuple:
+    """Order the decode-state spec dict into the caches tuple each family's
+    decode fn expects."""
+    specs = model.input_specs(sp)
+    return tuple(specs[n] for n in cache_names(model.cfg))
+
+
+def cache_names(cfg: ArchConfig) -> tuple[str, ...]:
+    """The decode caches' names in :func:`decode_caches_from_specs`'s order."""
+    if cfg.family not in _CACHES:
+        raise ValueError(cfg.family)
+    return _CACHES[cfg.family]

@@ -47,22 +47,33 @@ def _device(params) -> torch.device:
 
 
 def adamw_init(params, moment_dtype: str = "float32") -> dict:
+    """Zeroed moments laid out as their parameters (a DTensor leaf's are
+    DTensors of its placements)."""
     dt = _moment_dtype(moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": _step0(_device(params))}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (the tensor itself if plain)."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, lr: float = 3e-4, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1):
+    """Of DTensor leaves (gradients laid out as their parameters, moments
+    made alike) each rank updates its shards: the update is elementwise, so
+    a shard's is the whole's, in the plain path's arithmetic."""
     step = opt_state["step"] + 1
-    t = step.to(torch.float32)
+    t = _local(step).to(torch.float32)
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=t.device)  # noqa: E731
     bc1 = 1.0 - torch.pow(f32(b1), t)
     bc2 = 1.0 - torch.pow(f32(b2), t)
 
     def upd(g, m, v, p):
+        g, m, v, p = (_local(x) for x in (g, m, v, p))
         gf = g.float()
         m_new = b1 * m.float() + (1 - b1) * gf
         v_new = b2 * v.float() + (1 - b2) * gf * gf

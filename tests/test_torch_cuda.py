@@ -34,7 +34,10 @@ KH = 8) and at whisper-small's D = 64 (the 1,500-row encoder, cross
 attention of 4 and 224 queries over 1,500 rows, decode over the 1,500-row
 cross cache); the reduced llava and whisper on the card against their CPU
 run, and both at their published widths on the kernels against plain
-attention.
+attention. The attention kernels as registered operators (the dry run's
+route): each launches through ``torch.ops.repro_torch``, bitwise its ctypes
+wrapper, counted by ``FlopCounterMode``; under ``FakeTensorMode`` nothing
+launches.
 """
 from __future__ import annotations
 
@@ -1938,3 +1941,48 @@ def test_attention_kernels_refuse_grad_on_the_card(dev):
         ops.flash_attention_op(q, k, k)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.decode_attention_op(q[:, 0], k, k, torch.full((1,), 64, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# The attention kernels as registered operators (the dry run's route)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_attention_operators_launch_the_kernels_on_the_card(dev, name):
+    """On CUDA tensors under a dispatch mode ``kernels.ops`` goes through
+    ``torch.ops.repro_torch.<name>``: the hand-written kernel launches (one
+    launch counted), bitwise the ctypes wrapper called straight, and
+    ``FlopCounterMode`` counts the operator's formula; with no mode it
+    calls the wrapper (one launch, bitwise); under ``FakeTensorMode`` the
+    fake implementation answers and nothing launches."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(2, 16, 8, 64, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(2, 16, 2, 64, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([16, 5], dtype=torch.int32, device=dev)
+    if name == "flash_attention":
+        args, direct = (q, k, k), lambda: A.flash_attention(q, k, k, causal=True, scale=0.125)
+        call, flops = ops.flash_attention_op, 4 * 2 * 8 * 64 * (16 * 17 // 2)
+    else:
+        q = q[:, 0].contiguous()
+        args, direct = (q, k, k, lengths), lambda: A.decode_attention(q, k, k, lengths,
+                                                                       scale=0.125)
+        call, flops = ops.decode_attention_op, 4 * 2 * 8 * 64 * 16
+    before = LAUNCHES[name]
+    with FlopCounterMode(display=False) as fc:
+        got = call(*args)
+    assert LAUNCHES[name] == before + 1
+    assert fc.get_total_flops() == flops
+    assert str(next(iter(fc.get_flop_counts()["Global"]))) == f"repro_torch.{name}"
+    assert torch.equal(got, direct())
+    before = LAUNCHES[name]
+    assert torch.equal(call(*args), got) and LAUNCHES[name] == before + 1
+    before = LAUNCHES[name]
+    with FakeTensorMode() as mode:
+        fake = call(*(mode.from_tensor(t) for t in args))
+    assert LAUNCHES[name] == before and fake.shape == got.shape and fake.dtype == got.dtype
